@@ -3,18 +3,16 @@ cadm_tpu/cli/presets.py).
 
 ``ExperimentConfig`` carries the reference's knobs for the model-based
 trainer; ``build(device)`` assembles env, model, planner and trainer on one
-device. This slice builds ``trainer="mb"`` with ``model`` ∈ {cadm, vanilla},
-one deterministic member, on the ported envs (HalfCheetah). The collect /
-fit fields are kept with the preset's values and are read once the training
-path is ported.
+device (the card unless the caller asks for the CPU). The port builds
+``trainer="mb"`` with ``model`` ∈ {cadm, vanilla}, one deterministic member,
+on the ported envs (HalfCheetah).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-import torch
-
+from cadm_tpu_torch.core.types import resolve_device
 from cadm_tpu_torch.envs import make
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
 from cadm_tpu_torch.planners.mpc import MPCPlanner, PlannerConfig
@@ -37,6 +35,9 @@ class ExperimentConfig:
     hidden: Tuple[int, ...] = (200, 200, 200, 200)
     z_dim: int = 10
     history_k: int = 10
+    future_m: int = 10
+    beta_backward: float = 0.5
+    lr: float = 1e-3
     # planner
     planner: str = "cem"          # rs | cem
     n_candidates: int = 200
@@ -44,28 +45,31 @@ class ExperimentConfig:
     cem_iters: int = 5
     cem_elites: int = 20
     warm_start: bool = False
-    # training loop (collect / fit: read by the training port)
+    # training loop
     n_itr: int = 20
     steps_per_itr: int = 200
     model_updates_per_itr: int = 500
     batch_size: int = 128
     buffer_capacity: int = 8000
-    fit_protocol: str = "fixed"
-    # evaluation
     eval_envs: int = 16
     eval_modes: Tuple[int, ...] = (0, 1, 2)
+    eval_every: int = 1
     seed: int = 0
+    # fit protocol: "epochs" = epoch passes with early stop on held-out
+    # valid loss; "fixed" = a flat run of model_updates_per_itr updates
+    fit_protocol: str = "fixed"
+    max_epochs: int = 8
+    early_stop_patience: int = 2
+    early_stop_metric: str = "loss"   # "loss" | "fwd_mse"
+    epoch_updates_cap: int = 400
 
-    def build(self, device="cpu"):
+    def build(self, device="cuda"):
         """(env, model, planner, trainer) on ``device``.
 
         Raises where the port cannot honour the config, including a CUDA
         device on a machine without one (it never falls back to the CPU).
         """
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available")
+        device = resolve_device(device)
         if self.n_envs < 1 or self.eval_envs < 1:
             raise ValueError(
                 f"n_envs/eval_envs must be >= 1, got {self.n_envs}/{self.eval_envs}"
@@ -87,6 +91,9 @@ class ExperimentConfig:
                 context=CONTEXT_OF_MODEL[self.model],
                 z_dim=self.z_dim,
                 history_k=self.history_k,
+                future_m=self.future_m,
+                beta_backward=self.beta_backward,
+                lr=self.lr,
             ),
             device=device,
         )
@@ -109,7 +116,22 @@ class ExperimentConfig:
         )
         trainer = MBTrainer(
             env, model, planner,
-            TrainerConfig(n_envs=self.n_envs, eval_envs=self.eval_envs),
+            TrainerConfig(
+                n_envs=self.n_envs,
+                steps_per_itr=self.steps_per_itr,
+                n_itr=self.n_itr,
+                model_updates_per_itr=self.model_updates_per_itr,
+                batch_size=self.batch_size,
+                buffer_capacity=self.buffer_capacity,
+                eval_envs=self.eval_envs,
+                eval_modes=self.eval_modes,
+                eval_every=self.eval_every,
+                fit_protocol=self.fit_protocol,
+                max_epochs=self.max_epochs,
+                early_stop_patience=self.early_stop_patience,
+                early_stop_metric=self.early_stop_metric,
+                epoch_updates_cap=self.epoch_updates_cap,
+            ),
         )
         return env, model, planner, trainer
 

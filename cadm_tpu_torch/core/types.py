@@ -15,11 +15,51 @@ Tensor = torch.Tensor
 PyTree = Any
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises for a CUDA device on a
+    machine without one (the port never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available (pass device='cpu' to run on the CPU)")
+    return device
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The tensors of a tree of dicts/lists/tuples; dicts in sorted key
+    order (as ``jax.tree.leaves``), so trees built in another key order
+    still flatten alike."""
+    if isinstance(tree, Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t)]
+    raise TypeError(f"tree_leaves: unsupported node {type(tree).__name__}")
+
+
+def tree_unflatten(like: PyTree, leaves: list) -> PyTree:
+    """A tree shaped as ``like`` holding ``leaves`` (``tree_leaves`` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, Tensor):
+            return next(it)
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return type(t)(build(x) for x in t)
+
+    return build(like)
+
+
 def tree_map(fn: Callable, *trees: PyTree) -> PyTree:
-    """Apply ``fn`` leafwise over structurally identical trees."""
+    """Apply ``fn`` leafwise over structurally identical trees; ``None`` and
+    plain numbers (e.g. a step count) are kept as they are."""
     t0 = trees[0]
     if isinstance(t0, Tensor):
         return fn(*trees)
+    if t0 is None or isinstance(t0, (int, float)):
+        return t0
     if dataclasses.is_dataclass(t0):
         return dataclasses.replace(t0, **{
             f.name: tree_map(fn, *(getattr(t, f.name) for t in trees))

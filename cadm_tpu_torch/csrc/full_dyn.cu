@@ -1,6 +1,6 @@
-// Fused smooth-dynamics step (kernel K2).
+// Fused smooth-dynamics step (kernel K2) and the FK-velocity walk (kernel K3).
 //
-// Replaces the Pallas TPU kernel cadm_tpu/ops/fk_kernel.py::_full_dyn_kernel
+// K2 replaces the Pallas TPU kernel cadm_tpu/ops/fk_kernel.py::_full_dyn_kernel
 // (wrapper full_dyn_pallas; FK walk _fk_kernel). Computes, per env, the whole
 // smooth stage of one physics substep: the FK tree walk with body angular
 // velocity, COM velocity and the zero-q̈ bias accelerations; dof axes and
@@ -20,6 +20,14 @@
 // the Cholesky factors, so it is latency/local-memory bound; the outputs
 // (22·nb + 6·nv + nv² + nv floats per env) are its only device-memory
 // traffic besides the inputs.
+//
+// K3 replaces the Pallas TPU kernel cadm_tpu/ops/fk_kernel.py::fk_vel_pallas
+// (body _fk_kernel_merged): the FK + velocity / bias-acceleration walk alone,
+// the first nine fields of K2's row (22·nb + 6·nv floats per env). Both
+// kernels run the same device functions (load_table, fk_walk, fk_rows), so
+// K3's fields are bit-for-bit K2's. Its bound is the serial walk over the
+// bodies per thread (latency); its device-memory traffic is qpos/qvel in and
+// the rows out.
 #include <cuda_runtime.h>
 
 namespace {
@@ -114,37 +122,36 @@ __device__ __forceinline__ void put3(float* o, V3 v) {
   o[2] = (float)v.z;
 }
 
-__global__ void __launch_bounds__(kThreads)
-full_dyn_kernel(const SysTable* __restrict__ gsys,
-                const float* __restrict__ qpos, const float* __restrict__ qvel,
-                const float* __restrict__ ctrl,
-                const float* __restrict__ mass_scale,
-                const float* __restrict__ damping_scale,
-                const float* __restrict__ act_mask, float* __restrict__ out,
-                int E, int out_stride) {
-  __shared__ SysTable S;
-  {
-    const int* src = reinterpret_cast<const int*>(gsys);
-    int* dst = reinterpret_cast<int*>(&S);
-    for (int i = threadIdx.x; i < (int)(sizeof(SysTable) / 4); i += blockDim.x)
-      dst[i] = src[i];
-  }
+// Copy the System table into the block's shared memory (all threads).
+__device__ __forceinline__ void load_table(const SysTable* __restrict__ gsys,
+                                           SysTable& S) {
+  const int* src = reinterpret_cast<const int*>(gsys);
+  int* dst = reinterpret_cast<int*>(&S);
+  for (int i = threadIdx.x; i < (int)(sizeof(SysTable) / 4); i += blockDim.x)
+    dst[i] = src[i];
   __syncthreads();
-  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= E) return;
+}
 
-  const int nb = S.nb, nv = S.nv, nu = S.nu;
-  const float* qp = qpos + env * S.nq;
-  const float* qv = qvel + env * nv;
-  const float* u = ctrl + env * nu;
-  const float* am = act_mask + env * nu;
-  const Real ms = mass_scale[env];
-  const Real ds = damping_scale[env];
-
-  // ---- FK + velocity / bias-acceleration walk ----------------------------
+// Per-body frame state and per-dof (axis, anchor) after the tree walk.
+struct Walk {
   V3 pos[NB_MAX], w[NB_MAX], vx[NB_MAX], al[NB_MAX], ax[NB_MAX];
   Q4 quat[NB_MAX];
   V3 axis[NV_MAX], anchor[NV_MAX];
+};
+
+// FK + velocity / bias-acceleration walk of one env over the bodies in
+// tree order (parents first).
+__device__ __forceinline__ void fk_walk(const SysTable& S, const float* qp,
+                                        const float* qv, Walk& k) {
+  const int nb = S.nb;
+  V3* pos = k.pos;
+  V3* w = k.w;
+  V3* vx = k.vx;
+  V3* al = k.al;
+  V3* ax = k.ax;
+  Q4* quat = k.quat;
+  V3* axis = k.axis;
+  V3* anchor = k.anchor;
   const V3 z3 = {0.0, 0.0, 0.0};
   pos[0] = w[0] = vx[0] = al[0] = ax[0] = z3;
   quat[0] = {1.0, 0.0, 0.0, 0.0};
@@ -225,9 +232,16 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
     al[b] = alp;
     ax[b] = a;
   }
+}
 
-  // ---- output rows (layout of ops/fk_kernel.py::row_layout) --------------
-  float* o_pos = out + env * out_stride;
+// Write the nine FK fields of one env's row (layout of
+// ops/fk_kernel.py::row_layout: pos, quat, com, omega, v_com, alpha0,
+// a_com0, dof_axis, dof_anchor) starting at o; returns each body's COM and
+// zero-q̈ COM acceleration for K2.
+__device__ __forceinline__ void fk_rows(const SysTable& S, const Walk& k,
+                                        float* o, V3* com, V3* acom) {
+  const int nb = S.nb, nv = S.nv;
+  float* o_pos = o;
   float* o_quat = o_pos + 3 * nb;
   float* o_com = o_quat + 4 * nb;
   float* o_omega = o_com + 3 * nb;
@@ -236,28 +250,67 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
   float* o_acom = o_alpha + 3 * nb;
   float* o_axis = o_acom + 3 * nb;
   float* o_anchor = o_axis + 3 * nv;
-  float* o_minv = o_anchor + 3 * nv;
+  for (int b = 0; b < nb; ++b) {
+    const V3 rc = qrot(k.quat[b], v3(S.body_ipos[b]));
+    com[b] = add(k.pos[b], rc);
+    const V3 vcom = add(k.vx[b], cross(k.w[b], rc));
+    acom[b] = add(add(k.ax[b], cross(k.al[b], rc)),
+                  cross(k.w[b], cross(k.w[b], rc)));
+    put3(o_pos + 3 * b, k.pos[b]);
+    o_quat[4 * b + 0] = (float)k.quat[b].w;
+    o_quat[4 * b + 1] = (float)k.quat[b].x;
+    o_quat[4 * b + 2] = (float)k.quat[b].y;
+    o_quat[4 * b + 3] = (float)k.quat[b].z;
+    put3(o_com + 3 * b, com[b]);
+    put3(o_omega + 3 * b, k.w[b]);
+    put3(o_vcom + 3 * b, vcom);
+    put3(o_alpha + 3 * b, k.al[b]);
+    put3(o_acom + 3 * b, acom[b]);
+  }
+  for (int d = 0; d < nv; ++d) {
+    put3(o_axis + 3 * d, k.axis[d]);
+    put3(o_anchor + 3 * d, k.anchor[d]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+full_dyn_kernel(const SysTable* __restrict__ gsys,
+                const float* __restrict__ qpos, const float* __restrict__ qvel,
+                const float* __restrict__ ctrl,
+                const float* __restrict__ mass_scale,
+                const float* __restrict__ damping_scale,
+                const float* __restrict__ act_mask, float* __restrict__ out,
+                int E, int out_stride) {
+  __shared__ SysTable S;
+  load_table(gsys, S);
+  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (env >= E) return;
+
+  const int nb = S.nb, nv = S.nv, nu = S.nu;
+  const float* qp = qpos + env * S.nq;
+  const float* qv = qvel + env * nv;
+  const float* u = ctrl + env * nu;
+  const float* am = act_mask + env * nu;
+  const Real ms = mass_scale[env];
+  const Real ds = damping_scale[env];
+
+  Walk k;
+  fk_walk(S, qp, qv, k);
+  const V3* w = k.w;
+  const V3* al = k.al;
+  const Q4* quat = k.quat;
+  const V3* axis = k.axis;
+  const V3* anchor = k.anchor;
+
+  float* o_row = out + env * out_stride;
+  float* o_minv = o_row + 22 * nb + 6 * nv;
   float* o_vpred = o_minv + nv * nv;
 
   // per body: COM, world inertia × mass_scale, bias force and torque
-  V3 com[NB_MAX], fb[NB_MAX], tb[NB_MAX];
+  V3 com[NB_MAX], acom[NB_MAX], fb[NB_MAX], tb[NB_MAX];
   Real Iw[NB_MAX][6];
+  fk_rows(S, k, o_row, com, acom);
   for (int b = 0; b < nb; ++b) {
-    const V3 rc = qrot(quat[b], v3(S.body_ipos[b]));
-    com[b] = add(pos[b], rc);
-    const V3 vcom = add(vx[b], cross(w[b], rc));
-    const V3 acom = add(add(ax[b], cross(al[b], rc)), cross(w[b], cross(w[b], rc)));
-    put3(o_pos + 3 * b, pos[b]);
-    o_quat[4 * b + 0] = (float)quat[b].w;
-    o_quat[4 * b + 1] = (float)quat[b].x;
-    o_quat[4 * b + 2] = (float)quat[b].y;
-    o_quat[4 * b + 3] = (float)quat[b].z;
-    put3(o_com + 3 * b, com[b]);
-    put3(o_omega + 3 * b, w[b]);
-    put3(o_vcom + 3 * b, vcom);
-    put3(o_alpha + 3 * b, al[b]);
-    put3(o_acom + 3 * b, acom);
-
     const Q4 qi = qmul(quat[b], q4(S.body_iquat[b]));
     const Real R[3][3] = {
         {1.0 - 2.0 * (qi.y * qi.y + qi.z * qi.z), 2.0 * (qi.x * qi.y - qi.w * qi.z),
@@ -272,12 +325,8 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
       for (int jj = i; jj < 3; ++jj, ++k)
         Iw[b][k] = (R[i][0] * Id[0] * R[jj][0] + R[i][1] * Id[1] * R[jj][1] +
                     R[i][2] * Id[2] * R[jj][2]) * ms;
-    fb[b] = scale(sub(acom, v3(S.gravity)), S.body_mass[b] * ms);
+    fb[b] = scale(sub(acom[b], v3(S.gravity)), S.body_mass[b] * ms);
     tb[b] = add(sym_mul(Iw[b], al[b]), cross(w[b], sym_mul(Iw[b], w[b])));
-  }
-  for (int d = 0; d < nv; ++d) {
-    put3(o_axis + 3 * d, axis[d]);
-    put3(o_anchor + 3 * d, anchor[d]);
   }
 
   // ---- generalized force τ = actuation + passive − c − B·qvel ------------
@@ -369,6 +418,20 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
   for (int d = 0; d < nv; ++d) o_vpred[d] = (float)(qv[d] + S.dt * vp[d]);
 }
 
+__global__ void __launch_bounds__(kThreads)
+fk_vel_kernel(const SysTable* __restrict__ gsys,
+              const float* __restrict__ qpos, const float* __restrict__ qvel,
+              float* __restrict__ out, int E, int out_stride) {
+  __shared__ SysTable S;
+  load_table(gsys, S);
+  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (env >= E) return;
+  Walk k;
+  fk_walk(S, qpos + env * S.nq, qvel + env * S.nv, k);
+  V3 com[NB_MAX], acom[NB_MAX];
+  fk_rows(S, k, out + env * out_stride, com, acom);
+}
+
 }  // namespace
 
 extern "C" int cadm_full_dyn(const void* table, const float* qpos,
@@ -381,6 +444,16 @@ extern "C" int cadm_full_dyn(const void* table, const float* qpos,
   full_dyn_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const SysTable*>(table), qpos, qvel, ctrl, mass_scale,
       damping_scale, act_mask, out, E, out_stride);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cadm_fk_vel(const void* table, const float* qpos,
+                           const float* qvel, float* out, int E,
+                           int out_stride, void* stream) {
+  if (E <= 0) return 0;
+  const int blocks = (E + kThreads - 1) / kThreads;
+  fk_vel_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const SysTable*>(table), qpos, qvel, out, E, out_stride);
   return (int)cudaGetLastError();
 }
 

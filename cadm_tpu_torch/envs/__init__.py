@@ -11,10 +11,11 @@ ENVS = {
 }
 
 
-def make(name: str, randomization: str = "discrete", device="cpu",
+def make(name: str, randomization: str = "discrete", device="cuda",
          **overrides) -> Env:
     """Construct an env family on ``device``; ``horizon`` in
-    ``overrides`` replaces the family's episode length."""
+    ``overrides`` replaces the family's episode length. Without a card
+    the default device raises; tests pass ``device="cpu"``."""
     if name not in ENVS:
         raise NotImplementedError(
             f"env {name!r} is not ported yet (ported: {sorted(ENVS)})"

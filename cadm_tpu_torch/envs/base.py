@@ -17,7 +17,12 @@ from typing import Tuple
 
 import torch
 
-from cadm_tpu_torch.core.types import EnvState, PyTree, tree_where
+from cadm_tpu_torch.core.types import (
+    EnvState,
+    PyTree,
+    resolve_device,
+    tree_where,
+)
 
 Tensor = torch.Tensor
 
@@ -30,12 +35,13 @@ class Env:
     horizon: int
 
     def __init__(self, randomization: str = "discrete",
-                 horizon: "int | None" = None, device="cpu"):
+                 horizon: "int | None" = None, device="cuda"):
         """``randomization``: "discrete" (the paper's per-mode scale sets)
         or "continuous" (uniform bands). ``horizon`` overrides the family's
-        episode length. ``device`` holds every tensor the env makes."""
+        episode length. ``device`` holds every tensor the env makes; a CUDA
+        device (the default) raises where there is no card."""
         self.randomization = randomization
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if horizon is not None:
             self.horizon = horizon
 

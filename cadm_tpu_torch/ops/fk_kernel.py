@@ -1,13 +1,24 @@
-"""Fused smooth-dynamics step: kernel K2 and its plain version.
+"""Fused smooth-dynamics step (kernel K2), FK-velocity walk (kernel K3), and
+their plain versions.
 
-Replaces the Pallas TPU kernel ``cadm_tpu/ops/fk_kernel.py::full_dyn_pallas``
+K2 replaces the Pallas TPU kernel ``cadm_tpu/ops/fk_kernel.py::full_dyn_pallas``
 (body ``_full_dyn_kernel``). ``full_dyn`` launches the CUDA kernel of
 ``csrc/full_dyn.cu`` for a CUDA tensor and runs ``full_dyn_plain`` — the
 reference's composed smooth stage ``pure_one``
-(``cadm_tpu/physics/rigid/dynamics.py:413-426``) — for a CPU tensor. The
-kernel reads the System from a packed table (``SysTable``, one layout for
-every System), so the same binary serves all four rigid families; what bounds
-it on the card is described in ``csrc/full_dyn.cu``.
+(``cadm_tpu/physics/rigid/dynamics.py:413-426``) — for a CPU tensor.
+
+K3 replaces ``cadm_tpu/ops/fk_kernel.py::fk_vel_pallas`` (body
+``_fk_kernel_merged``) together with its dispatcher ``_fkvel_dispatch``
+(``cadm_tpu/physics/rigid/dynamics.py:347-399``): ``fk_vel`` launches the
+FK-velocity walk of ``csrc/full_dyn.cu`` for a CUDA tensor and derives the
+body rotations and world inertias from its quaternions, as the dispatcher's
+kernel branch does; a CPU tensor takes ``fk_vel_plain``
+(``kinematics.forward_velocities``). No trainer path calls it: it serves
+callers that need FK without the dynamics.
+
+Both kernels read the System from a packed table (``SysTable``, one layout
+for every System), so the same binary serves all four rigid families; what
+bounds them on the card is described in ``csrc/full_dyn.cu``.
 """
 from __future__ import annotations
 
@@ -31,9 +42,10 @@ Tensor = torch.Tensor
 FULL_DYN_MAX_NV = 24
 NB_MAX, NJ_MAX, NV_MAX, NU_MAX = 16, 24, 24, 24
 
-# Launches of the CUDA kernel in this process (read and reset by
+# Launches of the CUDA kernels in this process, K2 and K3 (read and reset by
 # chip_smoke.py to show that the main path went through the kernel).
 launches = 0
+fk_vel_launches = 0
 
 _i, _f = ctypes.c_int32, ctypes.c_float
 
@@ -81,8 +93,8 @@ def pack_system(sys: System) -> SysTable:
     nb, nj, nv, nu = sys.nb, sys.nj, sys.nv, sys.nu
     if nb > NB_MAX or nj > NJ_MAX or nv > min(NV_MAX, FULL_DYN_MAX_NV) \
             or nu > NU_MAX:
-        raise ValueError(f"System too large for the K2 table: nb={nb} nj={nj} "
-                         f"nv={nv} nu={nu}")
+        raise ValueError(f"System too large for the kernels' table: nb={nb} "
+                         f"nj={nj} nv={nv} nu={nu}")
     t = SysTable(nb=nb, nj=nj, nq=sys.nq, nv=nv, nu=nu)
     for b in range(nb):
         joints = np.nonzero(sys.jnt_body == b)[0]
@@ -162,6 +174,71 @@ def row_layout(sys: System) -> Tuple[Dict[str, Tuple[int, int, int]], int]:
     return layout, off
 
 
+def fk_width(sys: System) -> int:
+    """Row width of the nine FK fields (K3's whole row, K2's first part)."""
+    return 22 * sys.nb + 6 * sys.nv
+
+
+def _fkvel_from_rows(sys: System, out: Tensor) -> kinematics.FKVel:
+    """FKVel from kernel rows (E, ≥ fk_width) laid out as ``row_layout``;
+    body rotations and world inertias are derived from the quaternions."""
+    layout, _ = row_layout(sys)
+    e = out.shape[0]
+
+    def field(name):
+        off, rows, comps = layout[name]
+        return out[:, off: off + rows * comps].view(e, rows, comps)
+
+    quat = field("quat")
+    return kinematics.FKVel(
+        body_pos=field("pos"), body_rot=quat_to_mat(quat), com=field("com"),
+        inertia_w=kinematics.world_inertia(sys, quat),
+        dof_axis=field("dof_axis"), dof_anchor=field("dof_anchor"),
+        omega=field("omega"), v_com=field("v_com"), alpha0=field("alpha0"),
+        a_com0=field("a_com0"),
+    )
+
+
+def fk_vel_plain(sys: System, qpos: Tensor, qvel: Tensor) -> kinematics.FKVel:
+    """The FK-velocity walk as plain batched tensor ops."""
+    return kinematics.forward_velocities(sys, qpos, qvel)
+
+
+def launch_fk_vel(sys: System, qpos: Tensor, qvel: Tensor) -> Tensor:
+    """Launch kernel K3 on CUDA tensors → rows (E, fk_width(sys)) laid out
+    as the first nine fields of ``row_layout(sys)``."""
+    global fk_vel_launches
+    e = qpos.shape[0]
+    if tuple(qpos.shape) != (e, sys.nq) or tuple(qvel.shape) != (e, sys.nv):
+        raise ValueError(f"fk_vel shapes {tuple(qpos.shape)}, "
+                         f"{tuple(qvel.shape)}, expected ({e}, {sys.nq}), "
+                         f"({e}, {sys.nv})")
+    qpos, qvel = qpos.contiguous(), qvel.contiguous()
+    _build.require_cuda_f32("fk_vel", qpos, qvel)
+    width = fk_width(sys)
+    out = torch.empty(e, width, device=qpos.device, dtype=torch.float32)
+    code = _build.lib().cadm_fk_vel(
+        _device_table(sys, qpos.device).data_ptr(), qpos.data_ptr(),
+        qvel.data_ptr(), out.data_ptr(), e, width, _build.stream_handle(qpos),
+    )
+    _build.check(code, "fk_vel")
+    fk_vel_launches += 1
+    return out
+
+
+def fk_vel(sys: System, qpos: Tensor, qvel: Tensor) -> kinematics.FKVel:
+    """FK + velocities + zero-q̈ bias accelerations → FKVel (E, ...).
+
+    qpos (E, nq), qvel (E, nv). A CPU tensor takes the plain version; a
+    CUDA tensor launches kernel K3; any other device raises.
+    """
+    if qpos.device.type == "cpu":
+        return fk_vel_plain(sys, qpos, qvel)
+    if qpos.device.type != "cuda":
+        raise ValueError(f"fk_vel: unsupported device {qpos.device}")
+    return _fkvel_from_rows(sys, launch_fk_vel(sys, qpos, qvel))
+
+
 def full_dyn_plain(
     sys: System, qpos: Tensor, qvel: Tensor, ctrl: Tensor,
     mass_scale: Tensor, damping_scale: Tensor, act_mask: Tensor,
@@ -233,18 +310,7 @@ def full_dyn(
         raise ValueError(f"full_dyn: unsupported device {qpos.device}")
     out = launch(sys, *args)
     layout, _ = row_layout(sys)
-    e = qpos.shape[0]
-
-    def field(name):
-        off, rows, comps = layout[name]
-        return out[:, off: off + rows * comps].view(e, rows, comps)
-
-    quat = field("quat")
-    fkv = kinematics.FKVel(
-        body_pos=field("pos"), body_rot=quat_to_mat(quat), com=field("com"),
-        inertia_w=kinematics.world_inertia(sys, quat),
-        dof_axis=field("dof_axis"), dof_anchor=field("dof_anchor"),
-        omega=field("omega"), v_com=field("v_com"), alpha0=field("alpha0"),
-        a_com0=field("a_com0"),
-    )
-    return fkv, field("minv"), field("v_pred")[..., 0]
+    e, nv = qpos.shape[0], sys.nv
+    off_m, off_v = layout["minv"][0], layout["v_pred"][0]
+    minv = out[:, off_m: off_m + nv * nv].view(e, nv, nv)
+    return _fkvel_from_rows(sys, out), minv, out[:, off_v: off_v + nv]

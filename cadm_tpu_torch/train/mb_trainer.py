@@ -1,48 +1,299 @@
 """Model-based trainer (counterpart of cadm_tpu/train/mb_trainer.py).
 
-This slice ports the acting path: ``init`` builds the env batch, the
-context histories and the model state, and ``evaluate`` runs one
-planner-driven episode per eval env on a dynamics range (plan → env step,
-the reference's ``_eval_impl``). The random-action collect, the replay ring
-and the model fit come with the training port.
+The reference's master loop: for each outer iteration, collect rollouts
+(uniform-random actions on the first iteration to bootstrap the dataset,
+MPC through the model after) into the replay ring, fit the dynamics model
+(norm statistics from the ring, then Adam updates on sampled segments with
+early stop on a held-out valid loss), evaluate on the train/moderate/extreme
+dynamics ranges, and log one row.
+
+The reference compiles collect and fit into two programs (``lax.scan`` over
+time / updates, ``lax.cond`` over skipped epochs); here they are Python loops
+over batched device work, and the epoch loop stops at the early-stop epoch
+instead of running the skipped ones. The metrics and their keys are the
+reference's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from cadm_tpu_torch.core.types import batched_history
+from cadm_tpu_torch.core.types import batched_history, tree_map, tree_where
 from cadm_tpu_torch.envs.base import Env
-from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsState
+from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsState, NormStats
 from cadm_tpu_torch.planners.mpc import MPCPlanner
+from cadm_tpu_torch.train.buffer import ReplayBuffer, masked_mean_std
 
 Tensor = torch.Tensor
+Indices = Tuple[Tensor, Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The acting path's knobs; the collect/fit knobs come with their port."""
-
     n_envs: int = 8
+    steps_per_itr: int = 200        # env steps per env per outer iteration
+    n_itr: int = 10
+    model_updates_per_itr: int = 200
+    batch_size: int = 128
+    buffer_capacity: int = 4000     # per-env time columns
+    random_first_itr: bool = True
     eval_envs: int = 8
+    eval_modes: Tuple[int, ...] = (0, 1, 2)
+    eval_every: int = 1             # the final iteration always evaluates
+    fit_protocol: str = "fixed"     # "fixed" (N updates) | "epochs"
+    max_epochs: int = 50            # epoch cap for fit_protocol="epochs"
+    early_stop_patience: int = 5    # epochs without valid improvement
+    # held-out metric that gates early stopping: "loss" (the model's own
+    # objective) or "fwd_mse" (the forward-head mean MSE)
+    early_stop_metric: str = "loss"
+    min_rel_improve: float = 1e-3   # relative valid-loss improvement bar
+    valid_batches: int = 4          # minibatches per valid-loss estimate
+    # an epoch is min(one pass over the dataset, this many updates)
+    epoch_updates_cap: int = 500
+
+
+def epoch_minibatches(n_train_anchors: int, capacity: int, n_envs: int,
+                      batch_size: int, epoch_updates_cap: int
+                      ) -> Tuple[int, int]:
+    """(mb_cap, n_mb): the epoch's update cap and its update count.
+
+    Written as the reference writes them (mb_trainer.py:376-385), quirk
+    included: in ``-(-a * b) // c`` the unary minus binds before ``//``, so
+    ``n_mb`` is the FLOOR of train anchors × envs / batch, while ``mb_cap``
+    (``-(-a * b * 9 // 10 // c)``) is a ceiling division.
+    """
+    mb_cap = min(
+        epoch_updates_cap,
+        max(1, -(-capacity * n_envs * 9 // 10 // batch_size)),
+    )
+    n_mb = min(max(-(-n_train_anchors * n_envs) // batch_size, 1), mb_cap)
+    return mb_cap, n_mb
+
+
+def early_stop_step(best: float, since: int, val: float,
+                    min_rel_improve: float, patience: int
+                    ) -> Tuple[float, int, bool]:
+    """One epoch of the reference's early-stop rule (mb_trainer.py:416-421),
+    in float32 as there → (best, epochs since improvement, stop).
+
+    An epoch improves when val < best·(1 − min_rel_improve); ``best`` takes
+    the minimum, NaN propagating as under ``jnp.minimum``.
+    """
+    b, v = np.float32(best), np.float32(val)
+    improved = bool(v < b * np.float32(1.0 - min_rel_improve))
+    since = 0 if improved else since + 1
+    return float(np.minimum(b, v)), since, since >= patience
 
 
 class MBTrainer:
     def __init__(self, env: Env, model: Dynamics, planner: MPCPlanner,
                  config: TrainerConfig):
+        if config.fit_protocol not in ("fixed", "epochs"):
+            raise ValueError(f"unknown fit_protocol {config.fit_protocol!r}")
+        if config.early_stop_metric not in ("loss", "fwd_mse"):
+            raise ValueError(
+                f"unknown early_stop_metric {config.early_stop_metric!r}")
         self.env = env
         self.model = model
         self.planner = planner
         self.cfg = config
+        self._fit = {"fixed": self._fit_impl,
+                     "epochs": self._fit_epochs_impl}[config.fit_protocol]
 
     # ------------------------------------------------------------- init --
     def init(self, gen: torch.Generator):
-        """(env states, histories, model state) for ``n_envs`` envs."""
-        env_states = self.env.reset(gen, self.cfg.n_envs)
-        hists = batched_history(self.model.cfg, self.cfg.n_envs,
-                                self.env.device)
-        return env_states, hists, self.model.init_state(gen)
+        """(env states, histories, replay ring, model state) for ``n_envs``."""
+        env, cfg = self.env, self.cfg
+        env_states = env.reset(gen, cfg.n_envs)
+        hists = batched_history(self.model.cfg, cfg.n_envs, env.device)
+        buffer = ReplayBuffer.create(cfg.n_envs, cfg.buffer_capacity,
+                                     env.obs_dim, env.act_dim, env.device)
+        return env_states, hists, buffer, self.model.init_state(gen)
+
+    # ---------------------------------------------------------- collect --
+    @torch.no_grad()
+    def _collect(self, gen: torch.Generator, env_states, hists, buffer,
+                 dyn_state: DynamicsState, random_actions: bool,
+                 noise: Optional[Tensor] = None):
+        """``steps_per_itr`` control steps of every env into the ring.
+
+        Random actions are uniform in [-1, 1]; planned actions come from
+        the MPC planner through the current model and context. On done the
+        env has auto-reset, so its context window and warm-start plan are
+        wiped. ``noise`` replaces the sampled randomness per step (tests
+        feed both packages the same numbers): the actions (steps, E, act)
+        for a random collect, the planner's ε (steps, cem_iters, E, C, H,
+        act) for a planned one.
+        """
+        env, model, cfg, n = self.env, self.model, self.cfg, self.cfg.n_envs
+        plan_mu = self.planner.init_plan(n, env.device)
+        ret_acc = torch.zeros(n, device=env.device)
+        ep_returns, rewards, bad_fracs = [], [], []
+        for t in range(cfg.steps_per_itr):
+            if random_actions:
+                actions = noise[t] if noise is not None else 2.0 * torch.rand(
+                    n, env.act_dim, generator=gen, device=env.device) - 1.0
+            else:
+                z = model.context_from_history(dyn_state.params,
+                                               dyn_state.norm, hists)
+                actions, plan_mu = self.planner.plan(
+                    dyn_state, env_states.obs, z, gen, plan_mu,
+                    noise=None if noise is None else noise[t])
+            prev_obs, ep_step = env_states.obs, env_states.t
+            env_states, obs, reward, done = env.step(env_states, actions, gen)
+            bad = env.bad_transition(prev_obs, obs)
+            buffer.append(prev_obs, actions, obs, done, ep_step, bad)
+            pushed = model.push_history(dyn_state.params, dyn_state.norm,
+                                        hists, prev_obs, obs - prev_obs,
+                                        actions)
+            # auto-reset: a new episode with new params starts from scratch
+            plan_mu = torch.where(done[:, None, None], 0.0, plan_mu)
+            hists = tree_where(done, tree_map(torch.zeros_like, pushed),
+                               pushed)
+            ret_acc = ret_acc + reward
+            ep_returns.append(torch.where(done, ret_acc, math.nan))
+            ret_acc = torch.where(done, 0.0, ret_acc)
+            rewards.append(reward)
+            bad_fracs.append(bad.float().mean())
+        ep_returns = torch.stack(ep_returns)
+        finished = torch.isfinite(ep_returns)
+        n_done = finished.sum()
+        mean_return = torch.where(
+            n_done > 0,
+            torch.where(finished, ep_returns, 0.0).sum() / n_done.clamp(min=1),
+            math.nan,
+        )
+        metrics = {
+            "collect/mean_episode_return": mean_return,
+            "collect/mean_step_reward": torch.stack(rewards).mean(),
+            "collect/episodes": n_done,
+            # real-env blowup rate: transitions masked out of the norm
+            # statistics, the fit and the context windows
+            "collect/bad_transition_frac": torch.stack(bad_fracs).mean(),
+        }
+        return env_states, hists, buffer, metrics
+
+    # -------------------------------------------------------------- fit --
+    def _refresh_norm(self, buffer: ReplayBuffer, dyn_state: DynamicsState
+                      ) -> DynamicsState:
+        obs, act, dobs, mask = buffer.norm_inputs()
+        om, os_ = masked_mean_std(obs, mask)
+        am, as_ = masked_mean_std(act, mask)
+        dm, ds = masked_mean_std(dobs, mask)
+        return dataclasses.replace(
+            dyn_state, norm=NormStats(om, os_, am, as_, dm, ds))
+
+    def _draw(self, buffer: ReplayBuffer, gen: torch.Generator,
+              split: str) -> Indices:
+        """Segment indices of one (n_members, batch_size) minibatch."""
+        shape = (self.model.cfg.n_members, self.cfg.batch_size)
+        return buffer.draw_indices(gen, shape, split)
+
+    def _sample(self, buffer: ReplayBuffer, idx: Indices):
+        mc = self.model.cfg
+        return buffer.gather(*idx, mc.history_k, mc.future_m)
+
+    def _draw_valid(self, buffer, gen) -> List[Indices]:
+        return [self._draw(buffer, gen, "valid")
+                for _ in range(self.cfg.valid_batches)]
+
+    def _valid_metrics(self, buffer, valid_idx: List[Indices],
+                       dyn_state: DynamicsState) -> Tuple[Tensor, Tensor]:
+        """(mean valid loss, mean forward-mean MSE) over the held-out
+        minibatches, each weighted by its own Σvalid."""
+        losses, mses = [], []
+        for idx in valid_idx:
+            loss, m = self.model.loss(dyn_state.params, dyn_state.norm,
+                                      self._sample(buffer, idx))
+            losses.append(loss)
+            mses.append(m["fwd_mean_mse"])
+        return torch.stack(losses).mean(), torch.stack(mses).mean()
+
+    def _train_step(self, buffer, gen, dyn_state):
+        idx = self._draw(buffer, gen, "train")
+        dyn_state, m = self.model.update(dyn_state, self._sample(buffer, idx))
+        return dyn_state, m["model_loss"]
+
+    @torch.no_grad()
+    def _fit_impl(self, gen, buffer: ReplayBuffer, dyn_state: DynamicsState):
+        """Fixed protocol: ``model_updates_per_itr`` updates on the train
+        partition, valid loss before and after on the same batches."""
+        dyn_state = self._refresh_norm(buffer, dyn_state)
+        valid_idx = self._draw_valid(buffer, gen)
+        val_before, _ = self._valid_metrics(buffer, valid_idx, dyn_state)
+        losses = []
+        for _ in range(self.cfg.model_updates_per_itr):
+            dyn_state, loss = self._train_step(buffer, gen, dyn_state)
+            losses.append(loss)
+        val_after, fwd_mse_after = self._valid_metrics(buffer, valid_idx,
+                                                       dyn_state)
+        losses = torch.stack(losses)
+        return dyn_state, {
+            "fit/model_loss_first": losses[0],
+            "fit/model_loss_last": losses[-1],
+            "fit/model_loss_mean": losses.mean(),
+            "fit/valid_loss_before": val_before,
+            "fit/valid_loss_after": val_after,
+            "fit/valid_fwd_mse_after": fwd_mse_after,
+        }
+
+    @torch.no_grad()
+    def _fit_epochs_impl(self, gen, buffer: ReplayBuffer,
+                         dyn_state: DynamicsState):
+        """Epoch passes over the ring with early stop on the held-out loss.
+
+        An epoch is ``n_mb`` updates (one pass over today's train anchors,
+        capped; see ``epoch_minibatches``), then a fresh valid estimate. The
+        loop ends at ``max_epochs`` or once ``early_stop_patience`` epochs
+        in a row failed to improve. "After" reuses the valid batches of
+        "before".
+        """
+        cfg = self.cfg
+        dyn_state = self._refresh_norm(buffer, dyn_state)
+        _, n_mb = epoch_minibatches(buffer.n_train_anchors(), buffer.capacity,
+                                    cfg.n_envs, cfg.batch_size,
+                                    cfg.epoch_updates_cap)
+        monitored = (lambda loss, mse: mse) if cfg.early_stop_metric == \
+            "fwd_mse" else (lambda loss, mse: loss)
+
+        valid0 = self._draw_valid(buffer, gen)
+        v0_loss, v0_mse = self._valid_metrics(buffer, valid0, dyn_state)
+        best, since = float(monitored(v0_loss, v0_mse)), 0
+        vals = np.full(cfg.max_epochs, np.nan, np.float32)
+        train_losses = np.full(cfg.max_epochs, np.nan, np.float32)
+        for epoch in range(cfg.max_epochs):
+            losses = []
+            for _ in range(n_mb):
+                dyn_state, loss = self._train_step(buffer, gen, dyn_state)
+                losses.append(loss)
+            v_loss, v_mse = self._valid_metrics(
+                buffer, self._draw_valid(buffer, gen), dyn_state)
+            vals[epoch] = float(monitored(v_loss, v_mse))
+            train_losses[epoch] = torch.stack(losses).nanmean().item()
+            best, since, stop = early_stop_step(
+                best, since, vals[epoch], cfg.min_rel_improve,
+                cfg.early_stop_patience)
+            if stop:
+                break
+        ran = int(np.isfinite(vals).sum())
+        loss_after, mse_after = self._valid_metrics(buffer, valid0, dyn_state)
+        return dyn_state, {
+            "fit/model_loss_first": train_losses[0],
+            "fit/model_loss_last": (train_losses[max(ran - 1, 0)] if ran
+                                    else np.nan),
+            "fit/model_loss_mean": np.nanmean(train_losses),
+            # valid_loss_* report the model's own objective; the monitored
+            # early-stop signal is logged apart
+            "fit/valid_loss_before": v0_loss,
+            "fit/valid_loss_after": loss_after,
+            "fit/valid_monitored_best": best,
+            "fit/valid_fwd_mse_after": mse_after,
+            "fit/epochs_run": ran,
+        }
 
     # ------------------------------------------------------------- eval --
     @torch.no_grad()
@@ -73,3 +324,37 @@ class MBTrainer:
             ret = ret + reward * alive
             alive = alive * (1.0 - done.float())
         return ret
+
+    # ------------------------------------------------------------ train --
+    def train(self, gen: torch.Generator, logger=None):
+        """Run the outer loop → (final model state, list of metric rows).
+
+        Each row holds ``itr``, the collect metrics, the fit metrics and,
+        on evaluating iterations, the mean and population std of the eval
+        returns per mode, in the reference's key order.
+        """
+        cfg = self.cfg
+        env_states, hists, buffer, dyn_state = self.init(gen)
+        history = []
+        for itr in range(cfg.n_itr):
+            use_random = cfg.random_first_itr and itr == 0
+            env_states, hists, buffer, col_metrics = self._collect(
+                gen, env_states, hists, buffer, dyn_state, use_random)
+            dyn_state, fit_metrics = self._fit(gen, buffer, dyn_state)
+            # the reference's jitted collect/fit return their dicts with
+            # sorted keys, which fixes its CSV column order
+            metrics = {**dict(sorted(col_metrics.items())),
+                       **dict(sorted(fit_metrics.items()))}
+            if (itr + 1) % cfg.eval_every == 0 or itr == cfg.n_itr - 1:
+                for mode in cfg.eval_modes:
+                    returns = self.evaluate(dyn_state, mode, gen)
+                    metrics[f"eval/return_mode{mode}"] = returns.mean()
+                    metrics[f"eval/return_mode{mode}_std"] = returns.std(
+                        correction=0)
+            metrics = {"itr": itr, **{k: float(v) for k, v in metrics.items()}}
+            history.append(metrics)
+            if logger is not None:
+                for k, v in metrics.items():
+                    logger.logkv(k, v)
+                logger.dumpkvs()
+        return dyn_state, history

@@ -1,9 +1,10 @@
-"""Load parameters of the JAX package into the port.
+"""Load parameters and optimizer state of the JAX package into the port.
 
 Both packages keep an MLP layer as ``{"w": (in, out), "b": (out,)}`` and the
 member-stacked heads as ``params["fwd"]``/``params["bwd"]`` lists of
 ``{"w": (n_members, in, out), "b": (n_members, out)}``, so conversion is a
-dtype/device copy of every leaf, no transposes. Pass numpy arrays (e.g.
+dtype/device copy of every leaf, no transposes. The Adam moments of optax's
+``ScaleByAdamState`` are trees of the same shape. Pass numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``); this module does not import jax.
 """
 from __future__ import annotations
@@ -13,7 +14,8 @@ from typing import Any, Mapping, Tuple
 import numpy as np
 import torch
 
-from cadm_tpu_torch.models.dynamics import NormStats
+from cadm_tpu_torch.core.types import resolve_device
+from cadm_tpu_torch.models.dynamics import AdamState, NormStats
 
 NORM_FIELDS = ("obs_mean", "obs_std", "act_mean", "act_std", "dobs_mean",
                "dobs_std")
@@ -27,12 +29,23 @@ def _to_torch(tree: Any, device) -> Any:
     return torch.tensor(np.asarray(tree, np.float32), device=device)
 
 
-def params_from_jax(params_np: Mapping, norm_np: Any, device="cpu"
+def params_from_jax(params_np: Mapping, norm_np: Any, device="cuda"
                     ) -> Tuple[dict, NormStats]:
     """(params, NormStats) of the port from the JAX ``params`` dict and
     ``NormStats`` (leaves as numpy arrays)."""
+    device = resolve_device(device)
     norm = NormStats(*(
         torch.tensor(np.asarray(getattr(norm_np, f), np.float32), device=device)
         for f in NORM_FIELDS
     ))
     return _to_torch(params_np, device), norm
+
+
+def adam_state_from_jax(adam_np: Any, device="cuda") -> AdamState:
+    """The port's ``AdamState`` from optax's ``ScaleByAdamState`` (``count``,
+    ``mu``, ``nu`` as numpy; for the model's ``optax.chain(clip, adam)``
+    state it is ``opt_state[1][0]``)."""
+    device = resolve_device(device)
+    return AdamState(int(np.asarray(adam_np.count)),
+                     _to_torch(adam_np.mu, device),
+                     _to_torch(adam_np.nu, device))

@@ -6,31 +6,47 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, one line each, any failure raising (exit code != 0):
+Phases, one or more lines each, any failure raising (exit code != 0):
 
 1. the card's name and power limit; the nvcc build of the kernels;
 2. K1 (PGS contact solve) against its plain PyTorch version on 2048 random
    SPD systems at nc 16 and 29, cold (15 sweeps) and warm-started (6);
 3. K2 (fused smooth dynamics) against its plain version (run in float64)
    on all four rigid Systems at 2048 random states;
-4. a toy-width slice (plan → env step, 3 control steps) on the card against
+4. K3 (FK-velocity walk) against its plain version (run in float64) on all
+   four rigid Systems at 2048 random states;
+5. a toy-width slice (plan → env step, 3 control steps) on the card against
    the same slice on the CPU (plain versions), same weights/states/noise;
-5. the full-width HalfCheetah CaDM + CEM control path
-   (``halfcheetah_cadm_cem``: 2048 envs, 200 candidates × horizon 30 × 5 CEM
-   iterations, 4×200 heads) for ``env_horizon`` control steps in each of the
-   modes 0, 1, 2, with both kernels' launch counts checked against
-   steps × frame_skip.
+6. a toy-width fit, 20 model updates on the card against the same 20 on the
+   CPU: same starting weights, same segment batches;
+7. the training path at full width through the CLI
+   (``cadm_tpu_torch.cli.run.main`` with the ``halfcheetah_cadm_cem`` preset:
+   2048 envs, a 20000-column replay ring, batch 256, 4×200 heads, CEM
+   200×30×5, epoch fit with early stop), cut in depth only: 2 iterations
+   (random collect, then planned) of 20 control steps, 10-step episodes.
+   Checks the log, the fit metrics, the episode counts and K1/K2 launches =
+   5 × every control step taken;
+8. the acting path at full width (``trainer.evaluate``, 2048 envs) for
+   ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2, with both
+   kernels' launch counts checked against steps × frame_skip.
 
-The last two lines are a JSON object describing the kernels and the JSON
-contract line ``{"ok": true, "device": {...}}``. Without a CUDA card the
-script exits non-zero before printing any result.
+The last three lines are a JSON object describing the kernels (with each
+kernel's bound: the least time the card could take for the same work), the
+card's name and power limit, and the JSON contract line
+``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
+non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import csv
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,15 +54,38 @@ import torch
 
 SEED = 0
 E = 2048  # envs for the kernel checks (the preset's batch)
-SLICE_HORIZON = 10  # control steps per eval mode in phase 5
+SLICE_HORIZON = 3  # control steps per eval mode in phase 8
 # tolerances: λ 1e-4 (the reference's own for its PGS kernel); M⁻¹ 5e-5,
 # v_pred 5e-4 (its fused-kernel tolerances); FK fields 1e-5
 LAM_ATOL, MINV_ATOL, VPRED_ATOL, FK_ATOL = 1e-4, 5e-5, 5e-4, 1e-5
 # toy slice, card vs CPU: float32 model rollouts and 5-substep physics in
 # another summation order; measured differences are far below this
 SLICE_ATOL = 1e-3
+# toy fit, card vs CPU: float32 losses and gradients summed in another order
+# (cuBLAS vs the CPU's BLAS) differ by ~1e-6 relative; Adam moves each
+# weight by at most lr = 1e-3 per update and divides the gradient by its own
+# RMS, so 20 updates keep weights within 1e-4 unless a gradient entry sits
+# at rounding level, and losses within 1e-4 relative
+FIT_STEPS, FIT_ATOL, FIT_LOSS_RTOL = 20, 1e-4, 1e-4
 FK_FIELDS = ("body_pos", "body_rot", "com", "inertia_w", "dof_axis",
              "dof_anchor", "omega", "v_com", "alpha0", "a_com0")
+# the reference trainer's CSV row (its jitted dicts come back key-sorted)
+TRAIN_KEYS = [
+    "itr",
+    "collect/bad_transition_frac", "collect/episodes",
+    "collect/mean_episode_return", "collect/mean_step_reward",
+    "fit/epochs_run", "fit/model_loss_first", "fit/model_loss_last",
+    "fit/model_loss_mean", "fit/valid_fwd_mse_after", "fit/valid_loss_after",
+    "fit/valid_loss_before", "fit/valid_monitored_best",
+    "eval/return_mode0", "eval/return_mode0_std",
+    "eval/return_mode1", "eval/return_mode1_std",
+    "eval/return_mode2", "eval/return_mode2_std",
+]
+TRAIN_ARGS = ["--preset", "halfcheetah_cadm_cem", "--n-itr", "2",
+              "--steps-per-itr", "20", "--env-horizon", "10"]
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 and FP64 FLOP/s
+# outside the tensor cores
+HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -69,6 +108,51 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(n_bytes: float, flops: float, peak_flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BPS, flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ----------------------------------------------------- operation counts --
+# Arithmetic of the kernels per env, counted from their loops (csrc/*.cu):
+# one per add, multiply, divide, sqrt or sincos; V3 add/sub/scale 3, dot 5,
+# cross 9, quaternion product 28, quaternion rotation 38, symmetric 3×3
+# times vector 15.
+def fk_ops(sys_) -> int:
+    """FK + velocity walk and the nine output fields (K3, K2's first part)."""
+    per_joint = {0: 164, 2: 103, 3: 275}  # FREE, SLIDE, HINGE
+    walk = 114 * (sys_.nb - 1) + sum(per_joint[int(t)] for t in sys_.jnt_type)
+    return walk + 86 * sys_.nb
+
+
+def full_dyn_ops(sys_) -> int:
+    """K2: the walk, then inertias, bias, τ, mass matrix, Cholesky, L⁻¹,
+    M⁻¹ and v_pred."""
+    from cadm_tpu_torch.physics.rigid import kinematics
+
+    nv, mask = sys_.nv, sys_.ancestry_mask()
+    rot = kinematics._dof_is_rot(sys_)
+    ops = fk_ops(sys_) + 190 * sys_.nb + 5 * sys_.nu + 11 * sys_.nj
+    for d in range(nv):
+        ops += 3 + int(mask[:, d].sum()) * (24 if rot[d] else 12)
+        for e in range(d + 1):
+            common = int((mask[:, d] * mask[:, e]).sum())
+            ops += common * (8 + 12 * (rot[d] + rot[e]) + 21 * (rot[d] and rot[e]))
+    for j in range(nv):  # Cholesky, L⁻¹
+        ops += 2 * j + 2 + (nv - j - 1) * (2 * j + 1)
+        ops += 1 + sum(2 * (i - j) + 1 for i in range(j + 1, nv))
+    for a in range(nv):  # M⁻¹ = L⁻ᵀL⁻¹ and M⁻¹τ
+        ops += 3 + sum(2 * (nv - b) + 2 + 2 * (b != a) for b in range(a, nv))
+    return ops
+
+
+def pgs_ops(nc: int, iters: int) -> int:
+    """K1: per sweep and contact three row dots of 3nc and ~20 scalar ops."""
+    return iters * nc * (3 * 2 * 3 * nc + 20)
 
 
 # ------------------------------------------------------------- phase 2: K1 --
@@ -95,11 +179,15 @@ def check_pgs(pgs, dev, gen):
                                                iters=iters), reps=20)
             plain_ms = cuda_ms(lambda: pgs.pgs_solve_plain(A, b, vstar, actmu,
                                                            lam0, iters), reps=2)
+            # A, b, v*, μ, λ0 read once, λ written once
+            bound_ms, bound_by = bound(4 * E * (n * n + 3 * n + 2 * nc),
+                                       E * pgs_ops(nc, iters), FP32_FLOPS)
             print(f"K1 pgs nc={nc} {tag} iters={iters} E={E}: max_abs_err="
                   f"{err:.3e} inactive_zero={zero} kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms")
+                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             results.append(dict(nc=nc, tag=tag, err=err, zero=zero, ms=ms,
-                                plain_ms=plain_ms))
+                                plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by))
     bad = [r for r in results if not (r["err"] <= LAM_ATOL and r["zero"])]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version: {bad}")
@@ -123,6 +211,11 @@ def smooth_state(sys_, rng, n):
             rng.uniform(0.8, 1.2, n), am]
 
 
+def fk_err(fkv, fkv_ref) -> float:
+    return max((getattr(fkv, f).double() - getattr(fkv_ref, f)).abs().max()
+               .item() for f in FK_FIELDS)
+
+
 def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
     """K2 against its plain version run in float64 on the same inputs.
 
@@ -139,8 +232,7 @@ def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
         return {
             "minv": (minv.double() - minv_r).abs().max().item(),
             "v_pred": (vpred.double() - vpred_r).abs().max().item(),
-            "fk": max((getattr(fkv, f).double() - getattr(fkv_r, f)).abs()
-                      .max().item() for f in FK_FIELDS),
+            "fk": fk_err(fkv, fkv_r),
         }
 
     for asset in ASSETS:
@@ -154,13 +246,19 @@ def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
         ms = cuda_ms(lambda: fk_kernel.launch(sys_, *args), reps=20)
         wrapper_ms = cuda_ms(lambda: fk_kernel.full_dyn(sys_, *args), reps=20)
         plain_ms = cuda_ms(lambda: fk_kernel.full_dyn_plain(sys_, *args), reps=2)
+        width = fk_kernel.row_layout(sys_)[1]
+        n_in = sys_.nq + sys_.nv + 2 * sys_.nu + 2
+        bound_ms, bound_by = bound(4 * E * (n_in + width),
+                                   E * full_dyn_ops(sys_), FP64_FLOPS)
         fmt = lambda e: " ".join(f"{k}={v:.3e}" for k, v in e.items())  # noqa: E731
         print(f"K2 full_dyn {asset} nv={sys_.nv} E={E}: kernel vs plain(f64) "
               f"{fmt(e_kernel)}; plain(f32) vs plain(f64) {fmt(e_plain32)}; "
               f"kernel {ms:.4f} ms, wrapper (+ derived rotations/inertias) "
-              f"{wrapper_ms:.4f} ms, plain(f32) {plain_ms:.3f} ms")
+              f"{wrapper_ms:.4f} ms, plain(f32) {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})")
         results.append(dict(asset=asset, errs=e_kernel, ms=ms,
-                            plain_ms=plain_ms))
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by))
     bad = [r for r in results if not (
         r["errs"]["minv"] <= MINV_ATOL and r["errs"]["v_pred"] <= VPRED_ATOL
         and r["errs"]["fk"] <= FK_ATOL)]
@@ -169,7 +267,46 @@ def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
     return results
 
 
-# -------------------------------------------------- phase 4: toy slice ----
+# ------------------------------------------------------------- phase 4: K3 --
+def check_fk_vel(fk_kernel, load_system, ASSETS, dev):
+    """K3 against its plain version run in float64, on the draws of phase 3
+    (same seed): every field, and quat_to_mat(quat) against body_rot."""
+    from cadm_tpu_torch.physics.rigid.math3d import quat_to_mat
+
+    rng = np.random.RandomState(SEED)
+    results = []
+    for asset in ASSETS:
+        sys_ = load_system(asset)
+        qpos, qvel = (torch.tensor(x, dtype=torch.float32, device=dev)
+                      for x in smooth_state(sys_, rng, E)[:2])
+        ref = fk_kernel.fk_vel_plain(sys_, qpos.double(), qvel.double())
+        err = fk_err(fk_kernel.fk_vel(sys_, qpos, qvel), ref)
+        rows = fk_kernel.launch_fk_vel(sys_, qpos, qvel)
+        off, nb, _ = fk_kernel.row_layout(sys_)[0]["quat"]
+        quat = rows[:, off: off + 4 * nb].view(E, nb, 4)
+        err_rot = (quat_to_mat(quat).double() - ref.body_rot).abs().max().item()
+        ms = cuda_ms(lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel), reps=20)
+        wrapper_ms = cuda_ms(lambda: fk_kernel.fk_vel(sys_, qpos, qvel), reps=20)
+        plain_ms = cuda_ms(lambda: fk_kernel.fk_vel_plain(sys_, qpos, qvel),
+                           reps=2)
+        bound_ms, bound_by = bound(
+            4 * E * (sys_.nq + sys_.nv + fk_kernel.fk_width(sys_)),
+            E * fk_ops(sys_), FP64_FLOPS)
+        print(f"K3 fk_vel {asset} nb={sys_.nb} nv={sys_.nv} E={E}: kernel vs "
+              f"plain(f64) fields {err:.3e}, quat_to_mat(quat) vs body_rot "
+              f"{err_rot:.3e}; kernel {ms:.4f} ms, wrapper (+ derived "
+              f"rotations/inertias) {wrapper_ms:.4f} ms, plain(f32) "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        results.append(dict(asset=asset, err=max(err, err_rot), ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by))
+    bad = [r for r in results if not r["err"] <= FK_ATOL]
+    if bad:
+        raise AssertionError(f"K3 disagrees with its plain version: {bad}")
+    return results
+
+
+# -------------------------------------------------- phase 5: toy slice ----
 def run_toy_slice(cfg, device, dyn_cpu, start_cpu, noise, steps):
     """``steps`` control steps of plan → env step on ``device`` from CPU
     weights/states; returns the actions and observations of each step."""
@@ -193,11 +330,12 @@ def run_toy_slice(cfg, device, dyn_cpu, start_cpu, noise, steps):
     return out
 
 
+TOY = dict(hidden=(32, 32), n_candidates=16, plan_horizon=5, cem_iters=2,
+           cem_elites=4, n_envs=4, eval_envs=4)
+
+
 def check_toy_slice(PRESETS):
-    cfg = dataclasses.replace(
-        PRESETS["halfcheetah_cadm_cem"], hidden=(32, 32), n_candidates=16,
-        plan_horizon=5, cem_iters=2, cem_elites=4, n_envs=4, eval_envs=4,
-    )
+    cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], **TOY)
     env, model, _, _ = cfg.build("cpu")
     gen = torch.Generator().manual_seed(SEED)
     dyn = model.init_state(gen)
@@ -216,13 +354,158 @@ def check_toy_slice(PRESETS):
         raise AssertionError("toy slice on the card disagrees with the CPU")
 
 
-# ------------------------------------------------ phase 5: full slice -----
+# ---------------------------------------------------- phase 6: toy fit ----
+def check_toy_fit(PRESETS, devices=("cpu", "cuda")):
+    """20 updates on the card against the same 20 on the CPU.
+
+    A random collect on the CPU fills a toy ring; 20 train minibatches'
+    indices are drawn once there. Each device gets a copy of the ring and of
+    the starting weights, refreshes the norm statistics and takes the 20
+    updates on the segments those indices gather.
+    """
+    from cadm_tpu_torch.core.types import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], **TOY,
+                              batch_size=16, buffer_capacity=64,
+                              steps_per_itr=40)
+    _, _, _, trainer = cfg.build("cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    states, hists, buf, dyn = trainer.init(gen)
+    buf = trainer._collect(gen, states, hists, buf, dyn, True)[2]
+    idx = [trainer._draw(buf, gen, "train") for _ in range(FIT_STEPS)]
+    runs = []
+    for device in devices:
+        _, _, _, tr = cfg.build(device)
+        to = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
+        ring = dataclasses.replace(buf, **{
+            f: getattr(buf, f).to(device)
+            for f in ("obs", "act", "next_obs", "done", "ep_step", "bad")})
+        st = tr._refresh_norm(ring, to(dyn))
+        losses = []
+        for i in idx:
+            st, m = tr.model.update(st, tr._sample(ring, to(i)))
+            losses.append(m["model_loss"].item())
+        runs.append((tree_leaves(st.params), np.asarray(losses)))
+    (p_cpu, l_cpu), (p_gpu, l_gpu) = runs
+    err_p = max((a - b.cpu()).abs().max().item() for a, b in zip(p_cpu, p_gpu))
+    err_l = float(np.max(np.abs(l_cpu - l_gpu) / np.abs(l_cpu)))
+    print(f"toy fit card vs cpu, {FIT_STEPS} updates (heads (32, 32), batch "
+          f"16): max_abs_err params {err_p:.3e} (atol {FIT_ATOL}), losses "
+          f"rel {err_l:.3e} (rtol {FIT_LOSS_RTOL}); loss {l_cpu[0]:.4f} → "
+          f"{l_cpu[-1]:.4f}")
+    if not (err_p <= FIT_ATOL and err_l <= FIT_LOSS_RTOL):
+        raise AssertionError("toy fit on the card disagrees with the CPU")
+
+
+# ------------------------------------------- phase 7: full-width training --
+@contextlib.contextmanager
+def timed(cls, names, log):
+    """Time every call of ``cls``'s methods ``names`` on the host clock
+    between two synchronizes; appends (name, seconds, args, result)."""
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((name, time.perf_counter() - t0, args, out))
+            return out
+        return inner
+
+    for n in names:
+        setattr(cls, n, wrap(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def run_training(pgs, fk_kernel):
+    """The training path at full width through the CLI, cut in depth."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+
+    log = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            timed(MBTrainer, ("_collect", "_fit_epochs_impl", "evaluate"), log):
+        torch.cuda.reset_peak_memory_stats()
+        pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
+        t0 = time.perf_counter()
+        history = run.main(TRAIN_ARGS + ["--log-dir", tmp, "--exp-name", "t"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = (pgs.launches, fk_kernel.launches, fk_kernel.fk_vel_launches)
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "t", "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+
+    n_envs, steps, horizon = 2048, 20, 10
+    collects = [(s, a[6]) for n, s, a, _ in log if n == "_collect"]
+    fits = [(s, o[0].updates - a[3].updates) for n, s, a, o in log
+            if n == "_fit_epochs_impl"]
+    evals = [s for n, s, _, _ in log if n == "evaluate"]
+    control_steps = steps * len(collects) + horizon * len(evals)
+    for itr, ((c_s, random), (f_s, updates)) in enumerate(zip(collects, fits)):
+        kind = (f"random collect {n_envs * steps / c_s:.1f} env steps/s"
+                if random else f"planned collect {1e3 * c_s / steps:.1f} ms "
+                f"per control step")
+        print(f"train itr {itr}: {kind} ({c_s:.2f} s); fit {updates} updates "
+              f"in {f_s:.2f} s = {updates / f_s:.1f} updates/s")
+    print(f"train: {len(evals)} evals of {horizon} control steps, "
+          f"{1e3 * sum(evals) / (horizon * len(evals)):.1f} ms per control "
+          f"step; wall {wall:.1f} s; peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated, 20000-column ring)")
+
+    if len(rows) != 2 or list(rows[0]) != TRAIN_KEYS:
+        raise AssertionError(f"progress.csv: {len(rows)} rows, keys "
+                             f"{list(rows[0]) if rows else None}")
+    for row in rows:
+        bad = [k for k in TRAIN_KEYS if k.startswith("fit/")
+               and not math.isfinite(float(row[k]))]
+        if bad:
+            raise AssertionError(f"itr {row['itr']}: fit metrics not finite "
+                                 f"{bad}")
+        if not 1 <= float(row["fit/epochs_run"]) <= 8:
+            raise AssertionError(f"itr {row['itr']}: epochs_run "
+                                 f"{row['fit/epochs_run']}")
+        episodes = float(row["collect/episodes"])
+        print(f"train itr {row['itr']}: episodes {episodes:.0f} "
+              f"({episodes - 2 * n_envs:.0f} ended early by `unstable`), "
+              f"epochs_run {row['fit/epochs_run']}, valid loss "
+              f"{float(row['fit/valid_loss_before']):.4f} → "
+              f"{float(row['fit/valid_loss_after']):.4f}, eval returns "
+              f"{float(row['eval/return_mode0']):.3f} / "
+              f"{float(row['eval/return_mode1']):.3f} / "
+              f"{float(row['eval/return_mode2']):.3f}")
+        if episodes < 2 * n_envs:
+            raise AssertionError(f"itr {row['itr']}: {episodes} episodes")
+    first = rows[0]
+    if not float(first["fit/valid_loss_after"]) < float(
+            first["fit/valid_loss_before"]):
+        raise AssertionError("itr 0: the fit did not lower the valid loss")
+    if [len(collects), len(fits), len(evals)] != [2, 2, 6] or \
+            [r for _, r in collects] != [True, False] or len(history) != 2:
+        raise AssertionError(f"unexpected calls: {len(collects)} collects, "
+                             f"{len(fits)} fits, {len(evals)} evals")
+    expected = 5 * control_steps
+    print(f"train launches: pgs={launched[0]} full_dyn={launched[1]} "
+          f"fk_vel={launched[2]} (expected {expected} = 5 × {control_steps} "
+          f"control steps for pgs and full_dyn)")
+    if launched[:2] != (expected, expected):
+        raise AssertionError(f"training launches {launched[:2]} != {expected}")
+    return launched
+
+
+# ------------------------------------------- phase 8: full-width acting ----
 def run_full_slice(PRESETS, pgs, fk_kernel):
     cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], eval_envs=E,
                               env_horizon=SLICE_HORIZON)
-    env, _, _, trainer = cfg.build("cuda")
+    env, model, _, trainer = cfg.build("cuda")
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
-    _, _, dyn_state = trainer.init(gen)
+    dyn_state = model.init_state(gen)
     torch.cuda.synchronize()
     per_mode = env.horizon * env.frame_skip
     pgs.launches = fk_kernel.launches = 0
@@ -247,7 +530,15 @@ def run_full_slice(PRESETS, pgs, fk_kernel):
         if launched != (per_mode, per_mode):
             raise AssertionError(f"mode {mode}: launches {launched} != "
                                  f"{per_mode} per kernel")
-    return pgs.launches, fk_kernel.launches, step_ms
+    return step_ms
+
+
+def kernel_entry(name, source, replaces, launches, err, main, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -274,22 +565,27 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = check_pgs(pgs, dev, gen)
     k2 = check_full_dyn(fk_kernel, load_system, ASSETS, dev)
+    k3 = check_fk_vel(fk_kernel, load_system, ASSETS, dev)
     check_toy_slice(PRESETS)
-    n_pgs, n_fd, step_ms = run_full_slice(PRESETS, pgs, fk_kernel)
+    check_toy_fit(PRESETS)
+    n_pgs, n_fd, n_fk = run_training(pgs, fk_kernel)
+    step_ms = run_full_slice(PRESETS, pgs, fk_kernel)
 
     k1_main = next(r for r in k1 if r["nc"] == 16 and r["tag"] == "cold")
     k2_main = next(r for r in k2 if r["asset"] == "half_cheetah")
+    k3_main = next(r for r in k3 if r["asset"] == "half_cheetah")
     kernels = {"kernels": [
-        {"name": "pgs_solve", "route": "cuda",
-         "source": "cadm_tpu_torch/csrc/pgs.cu",
-         "replaces": "cadm_tpu/ops/pgs.py:79", "launches": n_pgs,
-         "max_abs_err": max(r["err"] for r in k1),
-         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"]},
-        {"name": "full_dyn", "route": "cuda",
-         "source": "cadm_tpu_torch/csrc/full_dyn.cu",
-         "replaces": "cadm_tpu/ops/fk_kernel.py:535", "launches": n_fd,
-         "max_abs_err": max(max(r["errs"].values()) for r in k2),
-         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"]},
+        kernel_entry("pgs_solve", "cadm_tpu_torch/csrc/pgs.cu",
+                     "cadm_tpu/ops/pgs.py:79", n_pgs,
+                     max(r["err"] for r in k1), k1_main),
+        kernel_entry("full_dyn", "cadm_tpu_torch/csrc/full_dyn.cu",
+                     "cadm_tpu/ops/fk_kernel.py:535", n_fd,
+                     max(max(r["errs"].values()) for r in k2), k2_main),
+        # on no main path (the reference's dispatcher has no caller either):
+        # its launches in the training run are 0 by design
+        kernel_entry("fk_vel", "cadm_tpu_torch/csrc/full_dyn.cu",
+                     "cadm_tpu/ops/fk_kernel.py:267", n_fk,
+                     max(r["err"] for r in k3), k3_main, main_path=False),
     ]}
     print(f"slice ms per control step (modes {list(PRESETS['halfcheetah_cadm_cem'].eval_modes)}): "
           f"{', '.join(f'{ms:.1f}' for ms in step_ms)}")

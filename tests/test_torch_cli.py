@@ -1,0 +1,94 @@
+"""The port's CLI and entry points: a tiny two-iteration run on the CPU,
+the flags the port does not offer, and the card as the default device."""
+import csv
+import dataclasses
+import json
+
+import pytest
+import torch
+
+from cadm_tpu_torch import envs
+from cadm_tpu_torch.cli import run
+from cadm_tpu_torch.cli.presets import PRESETS, ExperimentConfig
+from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
+from cadm_tpu_torch.utils.convert import params_from_jax
+
+# The reference trainer's row (cadm_tpu/train/mb_trainer.py:556-566): its
+# jitted collect and fit return their dicts with sorted keys.
+EXPECTED_KEYS = [
+    "itr",
+    "collect/bad_transition_frac", "collect/episodes",
+    "collect/mean_episode_return", "collect/mean_step_reward",
+    "fit/epochs_run", "fit/model_loss_first", "fit/model_loss_last",
+    "fit/model_loss_mean", "fit/valid_fwd_mse_after", "fit/valid_loss_after",
+    "fit/valid_loss_before", "fit/valid_monitored_best",
+    "eval/return_mode0", "eval/return_mode0_std",
+    "eval/return_mode1", "eval/return_mode1_std",
+    "eval/return_mode2", "eval/return_mode2_std",
+]
+TINY = ["--preset", "halfcheetah_cadm_cem", "--hidden", "16,16",
+        "--n-envs", "3", "--eval-envs", "2", "--n-candidates", "8",
+        "--plan-horizon", "3", "--cem-iters", "1", "--cem-elites", "2",
+        "--n-itr", "2", "--steps-per-itr", "6", "--env-horizon", "3",
+        "--buffer-capacity", "30", "--batch-size", "8", "--max-epochs", "3"]
+
+
+def test_cli_trains_on_the_cpu_and_writes_the_reference_logs(tmp_path):
+    history = run.main(TINY + ["--device", "cpu", "--log-dir", str(tmp_path),
+                               "--exp-name", "tiny"])
+    assert [row["itr"] for row in history] == [0, 1]
+    with open(tmp_path / "tiny" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 2 and list(rows[0]) == EXPECTED_KEYS
+    for row in rows:
+        # 3 envs, 6 steps of 3-step episodes: two episodes each
+        assert float(row["collect/episodes"]) == 6.0
+        assert 1 <= float(row["fit/epochs_run"]) <= 3
+        for key in EXPECTED_KEYS:
+            assert row[key] not in ("", "nan"), key
+    with open(tmp_path / "tiny" / "params.json") as f:
+        params = json.load(f)
+    assert sorted(params) == sorted(
+        f.name for f in dataclasses.fields(ExperimentConfig))
+    assert params["steps_per_itr"] == 6 and params["n_envs"] == 3
+    assert params["fit_protocol"] == "epochs" and params["max_epochs"] == 3
+    assert (tmp_path / "tiny" / "debug.log").read_text().strip().endswith(
+        "done.")
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint"], ["--resume"],
+                                  ["--dump-trajs"], ["--dp", "2"],
+                                  ["--model-par", "2"]])
+def test_flags_the_port_cannot_honour_are_rejected(flag):
+    with pytest.raises(SystemExit):
+        run.build_parser().parse_args(["--preset", "halfcheetah_cadm_cem",
+                                       *flag])
+
+
+def test_preset_carries_the_reference_fit_settings():
+    cfg = PRESETS["halfcheetah_cadm_cem"]
+    assert (cfg.future_m, cfg.beta_backward, cfg.lr, cfg.eval_every) == (
+        10, 0.5, 1e-3, 1)
+    assert (cfg.max_epochs, cfg.early_stop_patience, cfg.early_stop_metric,
+            cfg.epoch_updates_cap, cfg.fit_protocol) == (8, 2, "loss", 400,
+                                                         "epochs")
+    _, model, _, trainer = dataclasses.replace(
+        cfg, n_envs=2, eval_envs=2, buffer_capacity=10).build("cpu")
+    assert (model.cfg.future_m, model.cfg.beta_backward, model.cfg.lr) == (
+        10, 0.5, 1e-3)
+    assert (trainer.cfg.max_epochs, trainer.cfg.epoch_updates_cap,
+            trainer.cfg.batch_size, trainer.cfg.steps_per_itr) == (
+        8, 400, 256, 1000)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                                tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = DynamicsConfig(obs_dim=17, act_dim=6)
+    for call in (lambda: ExperimentConfig().build(),
+                 lambda: envs.make("half_cheetah"),
+                 lambda: Dynamics(cfg),
+                 lambda: params_from_jax({}, None),
+                 lambda: run.main(TINY + ["--log-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -79,6 +79,35 @@ def test_full_dyn_kernel_matches_plain_float64(dev, asset):
         assert err.item() <= FK_ATOL, name
 
 
+@pytest.mark.parametrize("asset", ASSETS)
+def test_fk_vel_kernel_matches_plain_float64(dev, asset):
+    """K3 (the FK-velocity walk alone) against its plain version in float64;
+    its fields are the first part of K2's row, so they equal K2's."""
+    sys_ = load_system(asset)
+    e = 257  # ragged against the 128-thread blocks
+    rng = np.random.RandomState(2)
+    qpos = sys_.default_qpos() + rng.uniform(-0.1, 0.1, (e, sys_.nq))
+    for j in range(sys_.nj):
+        if sys_.jnt_type[j] == 0:
+            a = int(sys_.jnt_qposadr[j]) + 3
+            qpos[:, a: a + 4] /= np.linalg.norm(qpos[:, a: a + 4], axis=-1,
+                                                keepdims=True)
+    qpos, qvel = (torch.tensor(x, dtype=torch.float32, device=dev)
+                  for x in (qpos, rng.uniform(-1, 1, (e, sys_.nv))))
+    before = fk_kernel.fk_vel_launches
+    fkv = fk_kernel.fk_vel(sys_, qpos, qvel)
+    assert fk_kernel.fk_vel_launches == before + 1
+    ref = fk_kernel.fk_vel_plain(sys_, qpos.double(), qvel.double())
+    for name in FK_FIELDS:
+        err = (getattr(fkv, name).double() - getattr(ref, name)).abs().max()
+        assert err.item() <= FK_ATOL, name
+    ones = torch.ones(e, device=dev)
+    rows = fk_kernel.launch(sys_, qpos, qvel, torch.zeros(e, sys_.nu, device=dev),
+                            ones, ones, torch.ones(e, sys_.nu, device=dev))
+    assert torch.equal(rows[:, :fk_kernel.fk_width(sys_)],
+                       fk_kernel.launch_fk_vel(sys_, qpos, qvel))
+
+
 def test_step_n_on_the_card_matches_the_cpu(dev):
     """Both kernels on the physics path, against the plain versions on CPU."""
     sys_ = load_system("half_cheetah")

@@ -51,7 +51,7 @@ def test_step_matches_jax_and_auto_resets():
                          done=jnp.zeros(N, bool))
     _, jobs, jrew, jdone = jax.jit(jax.vmap(jenv.step))(jstate, jnp.asarray(act))
 
-    env = HalfCheetahEnv()
+    env = HalfCheetahEnv(device="cpu")
     phys = RigidPhys(torch.from_numpy(qpos), torch.from_numpy(qvel))
     params = MassDampingParams(torch.from_numpy(ms), torch.from_numpy(ds))
     state = EnvState(phys=phys, obs=env.observe(params, phys), params=params,
@@ -79,7 +79,7 @@ def test_step_matches_jax_and_auto_resets():
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_reset_samples_only_the_modes_set(mode):
-    env = make("half_cheetah")
+    env = make("half_cheetah", device="cpu")
     state = env.reset(torch.Generator().manual_seed(mode), 4096, mode)
     allowed = (CANONICAL_SET.train, CANONICAL_SET.moderate,
                CANONICAL_SET.extreme)[mode]
@@ -100,7 +100,7 @@ def test_continuous_bands_stay_in_their_bands():
 
 
 def test_bad_transition_matches_jax():
-    jenv, env = JaxCheetah(), HalfCheetahEnv()
+    jenv, env = JaxCheetah(), HalfCheetahEnv(device="cpu")
     rng = np.random.RandomState(3)
     obs = rng.randn(64, 17).astype(np.float32) * 60
     nxt = obs + rng.randn(64, 17).astype(np.float32) * 40
@@ -111,4 +111,4 @@ def test_bad_transition_matches_jax():
 
 def test_unknown_env_is_not_ported():
     with pytest.raises(NotImplementedError):
-        make("ant")
+        make("ant", device="cpu")

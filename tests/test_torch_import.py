@@ -3,8 +3,9 @@ none of them) and without the JAX package.
 
 Runs in a subprocess because this suite's conftest imports jax: there the
 four modules are blocked in ``sys.modules``, every module of
-``cadm_tpu_torch`` is imported, the four Systems are loaded from their npz
-files and the acting slice runs at toy width on the CPU.
+``cadm_tpu_torch`` is imported (the replay ring, the CLI and the logger
+among them), the four Systems are loaded from their npz files and the acting
+slice runs at toy width on the CPU.
 """
 import os
 import subprocess
@@ -22,8 +23,12 @@ SCRIPT = textwrap.dedent("""
     import torch
     import cadm_tpu_torch
 
-    for info in pkgutil.walk_packages(cadm_tpu_torch.__path__, "cadm_tpu_torch."):
-        importlib.import_module(info.name)
+    names = {info.name for info in pkgutil.walk_packages(
+        cadm_tpu_torch.__path__, "cadm_tpu_torch.")}
+    assert {"cadm_tpu_torch.train.buffer", "cadm_tpu_torch.cli.run",
+            "cadm_tpu_torch.utils.logger"} <= names, names
+    for name in sorted(names):
+        importlib.import_module(name)
 
     from cadm_tpu_torch.cli.presets import PRESETS
     from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
@@ -39,9 +44,10 @@ SCRIPT = textwrap.dedent("""
     )
     env, model, planner, trainer = cfg.build("cpu")
     gen = torch.Generator().manual_seed(0)
-    states, hists, dyn = trainer.init(gen)
+    states, hists, buffer, dyn = trainer.init(gen)
     returns = trainer.evaluate(dyn, 1, gen)
     assert returns.shape == (4,) and torch.isfinite(returns).all(), returns
+    assert buffer.obs.shape == (4, cfg.buffer_capacity, 17)
 
     if not torch.cuda.is_available():
         try:

@@ -1,10 +1,11 @@
-"""The plain versions of the port's two kernels against the JAX package.
+"""The plain versions of the port's three kernels against the JAX package.
 
 K1 (``cadm_tpu_torch.ops.pgs``) is held against the Pallas PGS kernel run in
-interpret mode; K2 (``cadm_tpu_torch.ops.fk_kernel``) against the JAX
-composed smooth stage, which tests/test_fused_parity.py ties to the Pallas
-kernel. The CUDA kernels themselves are compared with these plain versions
-on the card (tests/test_torch_cuda.py and chip_smoke.py).
+interpret mode; K2 (``cadm_tpu_torch.ops.fk_kernel.full_dyn``) against the
+JAX composed smooth stage, which tests/test_fused_parity.py ties to the
+Pallas kernel; K3 (``fk_kernel.fk_vel``) in tests/test_torch_fk_vel.py. The CUDA kernels
+themselves are compared with these plain versions on the card
+(tests/test_torch_cuda.py and chip_smoke.py).
 """
 import jax
 import jax.numpy as jnp
@@ -74,6 +75,8 @@ def test_wrappers_reject_other_devices():
     args += [torch.ones(2, device="meta")] * 2 + [torch.ones(2, sys_.nu, device="meta")]
     with pytest.raises(ValueError, match="unsupported device"):
         fk_kernel.full_dyn(sys_, *args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fk_kernel.fk_vel(sys_, *args[:2])
 
 
 def smooth_state(sys_, seed=0, n=4):

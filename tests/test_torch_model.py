@@ -34,8 +34,9 @@ def jax_model_and_port():
                                         (0.1, 1, OBS))))
     jparams = jm.init_params(jax.random.key(3))
     params, norm = params_from_jax(jax.tree.map(np.asarray, jparams),
-                                   jax.tree.map(np.asarray, jnorm))
-    return jm, jparams, jnorm, Dynamics(DynamicsConfig(**CFG)), params, norm
+                                   jax.tree.map(np.asarray, jnorm), "cpu")
+    return (jm, jparams, jnorm, Dynamics(DynamicsConfig(**CFG), "cpu"), params,
+            norm)
 
 
 def window(seed=1):
@@ -105,7 +106,8 @@ def test_predict_matches_jax(rows):
 
 
 def test_vanilla_context_is_zero_width_and_ensembles_are_refused():
-    model = Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, hidden=(8,)))
+    model = Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, hidden=(8,)),
+                     "cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     assert sorted(params) == ["fwd"]
     dobs, act, valid = map(torch.from_numpy, window())
@@ -113,4 +115,4 @@ def test_vanilla_context_is_zero_width_and_ensembles_are_refused():
                           dobs, act, valid)
     assert z.shape == (E, 0)
     with pytest.raises(NotImplementedError):
-        Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, n_members=5))
+        Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, n_members=5), "cpu")

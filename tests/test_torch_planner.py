@@ -35,19 +35,19 @@ MODEL = dict(obs_dim=17, act_dim=6, hidden=(32, 32), context="encoder")
 
 
 def build(kind, warm_start=False):
-    jenv, env = JaxCheetah(), HalfCheetahEnv()
+    jenv, env = JaxCheetah(), HalfCheetahEnv(device="cpu")
     jm = JaxDynamics(JaxConfig(**MODEL))
     jparams = jm.init_params(jax.random.key(7))
     jnorm = JaxNorm.identity(17, 6)
     params, norm = params_from_jax(jax.tree.map(np.asarray, jparams),
-                                   jax.tree.map(np.asarray, jnorm))
+                                   jax.tree.map(np.asarray, jnorm), "cpu")
     jplanner = JaxPlanner(JaxPlannerConfig(kind=kind, warm_start=warm_start,
                                            **PLAN), jm, jenv.reward,
                           6, bad_transition_fn=jenv.bad_transition,
                           obs_limit=jenv.bad_obs_limit)
     planner = MPCPlanner(PlannerConfig(kind=kind, warm_start=warm_start,
                                        **PLAN),
-                         Dynamics(DynamicsConfig(**MODEL)), env.reward, 6,
+                         Dynamics(DynamicsConfig(**MODEL), "cpu"), env.reward, 6,
                          bad_transition_fn=env.bad_transition,
                          obs_limit=env.bad_obs_limit)
     jstate = JaxState(params=jparams, opt_state=None, norm=jnorm, updates=0)

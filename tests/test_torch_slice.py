@@ -83,7 +83,7 @@ def test_slice_matches_jax_for_three_control_steps():
     # --- port, built from the preset at toy width
     env, model, planner, _ = CFG.build("cpu")
     params, norm = params_from_jax(jax.tree.map(np.asarray, jparams),
-                                   jax.tree.map(np.asarray, jnorm))
+                                   jax.tree.map(np.asarray, jnorm), "cpu")
     dyn = DynamicsState(params, norm)
     phys = RigidPhys(torch.from_numpy(qpos), torch.from_numpy(qvel))
     par = MassDampingParams(torch.from_numpy(ms), torch.from_numpy(ds))
