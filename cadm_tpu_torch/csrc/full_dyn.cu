@@ -9,25 +9,42 @@
 // gear, act_mask); joint springs and limit penalties; Cholesky → L⁻¹ → M⁻¹;
 // and v_pred = qvel + dt·M⁻¹τ.
 //
-// Design: one thread per env, table-driven. The Pallas kernel is generated
-// per System with every constant an immediate, so its code size grows
-// steeply with nv; here one source serves every System: the wrapper packs the
-// System into a SysTable (must match ops/fk_kernel.py::SysTable field for
-// field), each block copies it into shared memory, and the thread loops over
-// bodies, joints and dofs with per-thread arrays sized by the compile-time
-// maxima below, in double precision (see Real). What bounds it on the card:
-// per-thread work is O(nv²·nb) flops and O(nv²) words of local memory for
-// the Cholesky factors, so it is latency/local-memory bound; the outputs
-// (22·nb + 6·nv + nv² + nv floats per env) are its only device-memory
-// traffic besides the inputs.
+// It also writes each body's rotation matrix and its unscaled world inertia
+// (the FKVel fields body_rot and inertia_w), from the quaternions it holds in
+// double, so the wrapper returns views of the row and derives nothing.
+//
+// Table-driven: the Pallas kernel is generated per System with every
+// constant an immediate, so its code size grows steeply with nv; here one
+// source serves every System: the wrapper packs the System into a SysTable
+// (must match ops/fk_kernel.py::SysTable field for field), each block copies
+// it into shared memory, and the loops run over bodies, joints and dofs, in
+// double precision (see Real).
+//
+// What bounds it on the card: latency, not bytes or flops. The tree walk is
+// a serial chain over the bodies, and the factorisation a chain over the
+// columns. Design: a group of G lanes per env (16 for nv ≤ 16, else 32),
+// 64-thread blocks, so 2048 envs are 512 (cheetah) or 1024 (humanoid) blocks
+// over the 132 SMs. One lane runs the walk and leaves its per-body and
+// per-dof state in the env's shared memory: the walk indexes that state by
+// the parent body at run time, so per-lane copies would sit in local memory
+// (3.6 KB a lane), while one shared copy serves every later stage directly.
+// The group then splits the independent work: the output rows, inertias and
+// bias forces per body; the linear Jacobian column of each (dof, body) pair,
+// which τ and the mass matrix share; τ per dof; the nv(nv+1)/2 mass-matrix
+// entries; the Cholesky column updates below each pivot (right-looking,
+// which subtracts the terms of each entry in the same order as the
+// left-looking form, one __syncwarp a column); the columns of L⁻¹; the M⁻¹
+// entries and the v_pred dots. The walk state, M (then M⁻¹), L, L⁻¹, the
+// Jacobian columns and τ live in shared memory per env, the matrices at an
+// odd stride.
 //
 // K3 replaces the Pallas TPU kernel cadm_tpu/ops/fk_kernel.py::fk_vel_pallas
 // (body _fk_kernel_merged): the FK + velocity / bias-acceleration walk alone,
-// the first nine fields of K2's row (22·nb + 6·nv floats per env). Both
-// kernels run the same device functions (load_table, fk_walk, fk_rows), so
-// K3's fields are bit-for-bit K2's. Its bound is the serial walk over the
-// bodies per thread (latency); its device-memory traffic is qpos/qvel in and
-// the rows out.
+// the first nine fields of K2's row (22·nb + 6·nv floats per env), one thread
+// per env. Both kernels call the same non-inlined device functions
+// (fk_walk, fk_body_row, fk_dof_row), so K3's fields are bit-for-bit K2's.
+// Its bound is the serial walk over the bodies per thread (latency); its
+// device-memory traffic is qpos/qvel in and the rows out.
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,7 +53,9 @@ constexpr int NB_MAX = 16;
 constexpr int NJ_MAX = 24;
 constexpr int NV_MAX = 24;
 constexpr int NU_MAX = 24;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;     // K3: one env per thread
+constexpr int kDynThreads = 64;   // K2: a group of G lanes per env
+constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int FREE = 0, SLIDE = 2, HINGE = 3;  // cadm_tpu.physics.rigid.system
 
 struct SysTable {
@@ -122,12 +141,14 @@ __device__ __forceinline__ void put3(float* o, V3 v) {
   o[2] = (float)v.z;
 }
 
-// Copy the System table into the block's shared memory (all threads).
+// Copy the System table into the block's shared memory (all threads, 16
+// bytes a load; the wrapper's device copy is 256-byte aligned).
+static_assert(sizeof(SysTable) % 16 == 0, "SysTable is copied as int4");
 __device__ __forceinline__ void load_table(const SysTable* __restrict__ gsys,
                                            SysTable& S) {
-  const int* src = reinterpret_cast<const int*>(gsys);
-  int* dst = reinterpret_cast<int*>(&S);
-  for (int i = threadIdx.x; i < (int)(sizeof(SysTable) / 4); i += blockDim.x)
+  const int4* src = reinterpret_cast<const int4*>(gsys);
+  int4* dst = reinterpret_cast<int4*>(&S);
+  for (int i = threadIdx.x; i < (int)(sizeof(SysTable) / 16); i += blockDim.x)
     dst[i] = src[i];
   __syncthreads();
 }
@@ -140,9 +161,10 @@ struct Walk {
 };
 
 // FK + velocity / bias-acceleration walk of one env over the bodies in
-// tree order (parents first).
-__device__ __forceinline__ void fk_walk(const SysTable& S, const float* qp,
-                                        const float* qv, Walk& k) {
+// tree order (parents first). Not inlined, like the row writers below: K2
+// and K3 run the same machine code, so their fields agree bit for bit.
+__device__ __noinline__ void fk_walk(const SysTable& S, const float* qp,
+                                     const float* qv, Walk& k) {
   const int nb = S.nb;
   V3* pos = k.pos;
   V3* w = k.w;
@@ -234,59 +256,93 @@ __device__ __forceinline__ void fk_walk(const SysTable& S, const float* qp,
   }
 }
 
-// Write the nine FK fields of one env's row (layout of
-// ops/fk_kernel.py::row_layout: pos, quat, com, omega, v_com, alpha0,
-// a_com0, dof_axis, dof_anchor) starting at o; returns each body's COM and
-// zero-q̈ COM acceleration for K2.
-__device__ __forceinline__ void fk_rows(const SysTable& S, const Walk& k,
-                                        float* o, V3* com, V3* acom) {
-  const int nb = S.nb, nv = S.nv;
-  float* o_pos = o;
-  float* o_quat = o_pos + 3 * nb;
-  float* o_com = o_quat + 4 * nb;
-  float* o_omega = o_com + 3 * nb;
-  float* o_vcom = o_omega + 3 * nb;
-  float* o_alpha = o_vcom + 3 * nb;
-  float* o_acom = o_alpha + 3 * nb;
-  float* o_axis = o_acom + 3 * nb;
-  float* o_anchor = o_axis + 3 * nv;
-  for (int b = 0; b < nb; ++b) {
-    const V3 rc = qrot(k.quat[b], v3(S.body_ipos[b]));
-    com[b] = add(k.pos[b], rc);
-    const V3 vcom = add(k.vx[b], cross(k.w[b], rc));
-    acom[b] = add(add(k.ax[b], cross(k.al[b], rc)),
-                  cross(k.w[b], cross(k.w[b], rc)));
-    put3(o_pos + 3 * b, k.pos[b]);
-    o_quat[4 * b + 0] = (float)k.quat[b].w;
-    o_quat[4 * b + 1] = (float)k.quat[b].x;
-    o_quat[4 * b + 2] = (float)k.quat[b].y;
-    o_quat[4 * b + 3] = (float)k.quat[b].z;
-    put3(o_com + 3 * b, com[b]);
-    put3(o_omega + 3 * b, k.w[b]);
-    put3(o_vcom + 3 * b, vcom);
-    put3(o_alpha + 3 * b, k.al[b]);
-    put3(o_acom + 3 * b, acom[b]);
-  }
-  for (int d = 0; d < nv; ++d) {
-    put3(o_axis + 3 * d, k.axis[d]);
-    put3(o_anchor + 3 * d, k.anchor[d]);
-  }
+
+// Write body b's seven FK fields of one env's row (layout of
+// ops/fk_kernel.py::row_layout: pos, quat, com, omega, v_com, alpha0, a_com0)
+// starting at o; returns the body's COM and zero-q̈ COM acceleration.
+__device__ __noinline__ void fk_body_row(const SysTable& S, const Walk& k,
+                                         int b, float* o, V3& com, V3& acom) {
+  const int nb = S.nb;
+  const V3 rc = qrot(k.quat[b], v3(S.body_ipos[b]));
+  com = add(k.pos[b], rc);
+  const V3 vcom = add(k.vx[b], cross(k.w[b], rc));
+  acom = add(add(k.ax[b], cross(k.al[b], rc)), cross(k.w[b], cross(k.w[b], rc)));
+  put3(o + 3 * b, k.pos[b]);
+  float* o_quat = o + 3 * nb + 4 * b;
+  o_quat[0] = (float)k.quat[b].w;
+  o_quat[1] = (float)k.quat[b].x;
+  o_quat[2] = (float)k.quat[b].y;
+  o_quat[3] = (float)k.quat[b].z;
+  put3(o + 7 * nb + 3 * b, com);
+  put3(o + 10 * nb + 3 * b, k.w[b]);
+  put3(o + 13 * nb + 3 * b, vcom);
+  put3(o + 16 * nb + 3 * b, k.al[b]);
+  put3(o + 19 * nb + 3 * b, acom);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Write dof d's axis and anchor (the row's dof_axis and dof_anchor fields).
+__device__ __noinline__ void fk_dof_row(const SysTable& S, const Walk& k,
+                                        int d, float* o) {
+  put3(o + 22 * S.nb + 3 * d, k.axis[d]);
+  put3(o + 22 * S.nb + 3 * S.nv + 3 * d, k.anchor[d]);
+}
+
+// rotation matrix of a quaternion (math3d.quat_to_mat)
+__device__ __forceinline__ void quat_mat(Q4 q, Real R[3][3]) {
+  R[0][0] = 1.0 - 2.0 * (q.y * q.y + q.z * q.z);
+  R[0][1] = 2.0 * (q.x * q.y - q.w * q.z);
+  R[0][2] = 2.0 * (q.x * q.z + q.w * q.y);
+  R[1][0] = 2.0 * (q.x * q.y + q.w * q.z);
+  R[1][1] = 1.0 - 2.0 * (q.x * q.x + q.z * q.z);
+  R[1][2] = 2.0 * (q.y * q.z - q.w * q.x);
+  R[2][0] = 2.0 * (q.x * q.z - q.w * q.y);
+  R[2][1] = 2.0 * (q.y * q.z + q.w * q.x);
+  R[2][2] = 1.0 - 2.0 * (q.x * q.x + q.y * q.y);
+}
+
+// row i and column c ≤ i of entry q of a lower triangle stored row by row
+__device__ __forceinline__ void tri_index(int q, int& i, int& c) {
+  int r = (int)((sqrtf(8.f * q + 1.f) - 1.f) * 0.5f);
+  while ((r + 1) * (r + 2) / 2 <= q) ++r;
+  while (r * (r + 1) / 2 > q) --r;
+  i = r;
+  c = q - r * (r + 1) / 2;
+}
+
+// doubles of one env's shared scratch in K2: the walk state, COM, COM
+// acceleration, bias force and torque (V3 per body), the scaled world
+// inertia (6 per body), τ, 1/diag(L), then M (worked down by the Cholesky,
+// later M⁻¹; nv rows at stride nv | 1), then one space that first holds the
+// linear Jacobian column of each (dof, body) pair (V3, nv × nb) and, once
+// the mass matrix is built, L and L⁻¹ (at the same stride)
+__host__ __device__ __forceinline__ int dyn_scratch_doubles(int nb, int nv) {
+  const int ld = nv | 1;
+  const int jac = 3 * nv * nb, factors = 2 * nv * ld;
+  return (int)(sizeof(Walk) / sizeof(Real)) + 18 * nb + 2 * nv + nv * ld +
+         (jac > factors ? jac : factors);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kDynThreads)
 full_dyn_kernel(const SysTable* __restrict__ gsys,
                 const float* __restrict__ qpos, const float* __restrict__ qvel,
                 const float* __restrict__ ctrl,
                 const float* __restrict__ mass_scale,
                 const float* __restrict__ damping_scale,
                 const float* __restrict__ act_mask, float* __restrict__ out,
-                int E, int out_stride) {
-  __shared__ SysTable S;
+                int E, int out_stride, int scratch) {
+  __shared__ __align__(16) SysTable S;
+  extern __shared__ Real dsm[];
   load_table(gsys, S);
-  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= E) return;
+  constexpr int kGroups = kDynThreads / G;
+  const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+  const int gbase = (threadIdx.x % 32) & ~(G - 1);
+  const unsigned gmask =
+      (G == 32 ? 0xffffffffu : ((1u << G) - 1u)) << gbase;
+  const long long env = (long long)blockIdx.x * kGroups + grp;
+  if (env >= E) return;  // a whole group leaves; only group syncs follow
 
-  const int nb = S.nb, nv = S.nv, nu = S.nu;
+  const int nb = S.nb, nv = S.nv, nu = S.nu, ld = nv | 1;
   const float* qp = qpos + env * S.nq;
   const float* qv = qvel + env * nv;
   const float* u = ctrl + env * nu;
@@ -294,142 +350,201 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
   const Real ms = mass_scale[env];
   const Real ds = damping_scale[env];
 
-  Walk k;
-  fk_walk(S, qp, qv, k);
-  const V3* w = k.w;
-  const V3* al = k.al;
-  const Q4* quat = k.quat;
-  const V3* axis = k.axis;
-  const V3* anchor = k.anchor;
+  Real* base = dsm + (size_t)grp * scratch;
+  Walk& k = *reinterpret_cast<Walk*>(base);
+  V3* com = reinterpret_cast<V3*>(base + sizeof(Walk) / sizeof(Real));
+  V3* acom = com + nb;
+  V3* fb = acom + nb;
+  V3* tb = fb + nb;
+  Real* Iw = reinterpret_cast<Real*>(tb + nb);  // (xx, xy, xz, yy, yz, zz) × ms
+  Real* tau = Iw + 6 * nb;
+  Real* invd = tau + nv;  // 1 / L[i][i]
+  Real* W = invd + nv;    // M, worked down by the Cholesky, then M⁻¹
+  V3* J = reinterpret_cast<V3*>(W + nv * ld);  // [d * nb + b], until M is built
+  Real* L = W + nv * ld;                        // then L and L⁻¹ in its place
+  Real* Li = L + nv * ld;
 
-  float* o_row = out + env * out_stride;
-  float* o_minv = o_row + 22 * nb + 6 * nv;
+  float* o = out + env * out_stride;
+  float* o_rot = o + 22 * nb + 6 * nv;
+  float* o_inertia = o_rot + 9 * nb;
+  float* o_minv = o_inertia + 9 * nb;
   float* o_vpred = o_minv + nv * nv;
 
-  // per body: COM, world inertia × mass_scale, bias force and torque
-  V3 com[NB_MAX], acom[NB_MAX], fb[NB_MAX], tb[NB_MAX];
-  Real Iw[NB_MAX][6];
-  fk_rows(S, k, o_row, com, acom);
-  for (int b = 0; b < nb; ++b) {
-    const Q4 qi = qmul(quat[b], q4(S.body_iquat[b]));
-    const Real R[3][3] = {
-        {1.0 - 2.0 * (qi.y * qi.y + qi.z * qi.z), 2.0 * (qi.x * qi.y - qi.w * qi.z),
-         2.0 * (qi.x * qi.z + qi.w * qi.y)},
-        {2.0 * (qi.x * qi.y + qi.w * qi.z), 1.0 - 2.0 * (qi.x * qi.x + qi.z * qi.z),
-         2.0 * (qi.y * qi.z - qi.w * qi.x)},
-        {2.0 * (qi.x * qi.z - qi.w * qi.y), 2.0 * (qi.y * qi.z + qi.w * qi.x),
-         1.0 - 2.0 * (qi.x * qi.x + qi.y * qi.y)}};
+  // ---- FK walk in one lane; then per body and per dof across the group:
+  // the FK row fields, body_rot, the unscaled world inertia, bias force and
+  // torque
+  if (lane == 0) fk_walk(S, qp, qv, k);
+  __syncwarp(gmask);
+  for (int b = lane; b < nb; b += G) {
+    fk_body_row(S, k, b, o, com[b], acom[b]);
+    const Q4 qb = k.quat[b];
+    Real R[3][3], Ri[3][3], I[3][3];
+    quat_mat(qb, R);
+    quat_mat(qmul(qb, q4(S.body_iquat[b])), Ri);
     const float* Id = S.body_inertia[b];
-    int k = 0;
     for (int i = 0; i < 3; ++i)
-      for (int jj = i; jj < 3; ++jj, ++k)
-        Iw[b][k] = (R[i][0] * Id[0] * R[jj][0] + R[i][1] * Id[1] * R[jj][1] +
-                    R[i][2] * Id[2] * R[jj][2]) * ms;
+      for (int j = 0; j < 3; ++j) {
+        I[i][j] = Ri[i][0] * Id[0] * Ri[j][0] + Ri[i][1] * Id[1] * Ri[j][1] +
+                  Ri[i][2] * Id[2] * Ri[j][2];
+        o_rot[9 * b + 3 * i + j] = (float)R[i][j];
+        o_inertia[9 * b + 3 * i + j] = (float)I[i][j];
+      }
+    Real* Iwb = Iw + 6 * b;
+    for (int i = 0, q = 0; i < 3; ++i)
+      for (int j = i; j < 3; ++j, ++q) Iwb[q] = I[i][j] * ms;
     fb[b] = scale(sub(acom[b], v3(S.gravity)), S.body_mass[b] * ms);
-    tb[b] = add(sym_mul(Iw[b], al[b]), cross(w[b], sym_mul(Iw[b], w[b])));
+    tb[b] = add(sym_mul(Iwb, k.al[b]), cross(k.w[b], sym_mul(Iwb, k.w[b])));
   }
+  for (int d = lane; d < nv; d += G) fk_dof_row(S, k, d, o);
+  __syncwarp(gmask);
+  // the linear Jacobian column of each (dof, body) pair the dof moves
+  for (int q = lane; q < nv * nb; q += G) {
+    const int d = q / nb, b = q - d * nb;
+    if (S.dof_bodies[d] >> b & 1u)
+      J[q] = S.dof_is_rot[d] ? cross(k.axis[d], sub(com[b], k.anchor[d]))
+                             : k.axis[d];
+  }
+  __syncwarp(gmask);
 
-  // ---- generalized force τ = actuation + passive − c − B·qvel ------------
-  Real tau[NV_MAX];
-  for (int d = 0; d < nv; ++d) {
+  // ---- generalized force per dof: τ = actuation + passive − c − B·qvel ---
+  for (int d = lane; d < nv; d += G) {
     const bool rot = S.dof_is_rot[d];
+    const V3 ad = k.axis[d];
     Real c = 0.0;
     for (unsigned int bits = S.dof_bodies[d]; bits; bits &= bits - 1) {
       const int b = __ffs(bits) - 1;
-      const V3 col = rot ? cross(axis[d], sub(com[b], anchor[d])) : axis[d];
-      c += dot(col, fb[b]);
-      if (rot) c += dot(axis[d], tb[b]);
+      c += dot(J[d * nb + b], fb[b]);
+      if (rot) c += dot(ad, tb[b]);
     }
-    tau[d] = -c - S.dof_damping[d] * ds * qv[d];
-  }
-  for (int a = 0; a < nu; ++a) {
-    const Real uc = fminf(fmaxf(u[a], S.act_lo[a]), S.act_hi[a]);
-    tau[S.act_dof[a]] += uc * S.act_gear[a] * am[a];
-  }
-  for (int j = 0; j < S.nj; ++j) {
-    const int jt = S.jnt_type[j];
-    if (jt != HINGE && jt != SLIDE) continue;
-    const int da = S.jnt_dofadr[j];
-    const Real qj = qp[S.jnt_qposadr[j]];
-    tau[da] -= S.jnt_stiffness[j] * (qj - S.jnt_qpos_spring[j]);
-    if (S.jnt_limited[j]) {
-      const Real vh = fmax(qj - S.jnt_range[j][1], 0.0);
-      const Real vl = fmax(S.jnt_range[j][0] - qj, 0.0);
-      const Real active = (vh > 0.0 || vl > 0.0) ? 1.0 : 0.0;
-      tau[da] -= S.limit_stiffness * (vh - vl) + S.limit_damping * qv[da] * active;
+    Real t = -c - S.dof_damping[d] * ds * qv[d];
+    for (int a = 0; a < nu; ++a) {
+      if (S.act_dof[a] != d) continue;
+      const Real uc = fminf(fmaxf(u[a], S.act_lo[a]), S.act_hi[a]);
+      t += uc * S.act_gear[a] * am[a];
     }
-  }
-
-  // ---- mass matrix (lower triangle) + armature + dt·B --------------------
-  Real L[NV_MAX][NV_MAX];
-  for (int d = 0; d < nv; ++d) {
-    const bool rot_d = S.dof_is_rot[d];
-    for (int e = 0; e <= d; ++e) {
-      const bool rot_e = S.dof_is_rot[e];
-      Real acc = 0.0;
-      for (unsigned int bits = S.dof_bodies[d] & S.dof_bodies[e]; bits;
-           bits &= bits - 1) {
-        const int b = __ffs(bits) - 1;
-        const V3 cd = rot_d ? cross(axis[d], sub(com[b], anchor[d])) : axis[d];
-        const V3 ce = rot_e ? cross(axis[e], sub(com[b], anchor[e])) : axis[e];
-        acc += S.body_mass[b] * ms * dot(cd, ce);
-        if (rot_d && rot_e) acc += dot(axis[d], sym_mul(Iw[b], axis[e]));
+    for (int j = 0; j < S.nj; ++j) {
+      const int jt = S.jnt_type[j];
+      if ((jt != HINGE && jt != SLIDE) || S.jnt_dofadr[j] != d) continue;
+      const Real qj = qp[S.jnt_qposadr[j]];
+      t -= S.jnt_stiffness[j] * (qj - S.jnt_qpos_spring[j]);
+      if (S.jnt_limited[j]) {
+        const Real vh = fmax(qj - S.jnt_range[j][1], 0.0);
+        const Real vl = fmax(S.jnt_range[j][0] - qj, 0.0);
+        const Real active = (vh > 0.0 || vl > 0.0) ? 1.0 : 0.0;
+        t -= S.limit_stiffness * (vh - vl) + S.limit_damping * qv[d] * active;
       }
-      if (d == e) acc += S.dof_armature[d] + S.dt * (S.dof_damping[d] * ds);
-      L[d][e] = acc;
     }
+    tau[d] = t;
   }
 
-  // ---- Cholesky (pivot clamped at 1e-12 like the reference) → L⁻¹ --------
-  for (int j = 0; j < nv; ++j) {
-    Real s = L[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    L[j][j] = sqrt(fmax(s, 1e-12));
-    const Real inv_jj = 1.0 / L[j][j];
-    for (int i = j + 1; i < nv; ++i) {
-      Real t = L[i][j];
-      for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-      L[i][j] = t * inv_jj;
+  // ---- mass matrix (lower triangle) + armature + dt·B, one entry a lane --
+  const int ntri = nv * (nv + 1) / 2;
+  for (int q = lane; q < ntri; q += G) {
+    int d, e;
+    tri_index(q, d, e);
+    const bool rot_d = S.dof_is_rot[d], rot_e = S.dof_is_rot[e];
+    const V3 ad = k.axis[d], ae = k.axis[e];
+    Real acc = 0.0;
+    for (unsigned int bits = S.dof_bodies[d] & S.dof_bodies[e]; bits;
+         bits &= bits - 1) {
+      const int b = __ffs(bits) - 1;
+      acc += S.body_mass[b] * ms * dot(J[d * nb + b], J[e * nb + b]);
+      if (rot_d && rot_e) acc += dot(ad, sym_mul(Iw + 6 * b, ae));
     }
+    if (d == e) acc += S.dof_armature[d] + S.dt * (S.dof_damping[d] * ds);
+    W[d * ld + e] = acc;
   }
-  Real Li[NV_MAX][NV_MAX];  // lower-triangular L⁻¹
+  __syncwarp(gmask);
+
+  // ---- Cholesky, right-looking (pivot clamped at 1e-12 like the
+  // reference), one __syncwarp a column: every lane takes the pivot itself,
+  // writes its rows of L's column, and updates its entries of the trailing
+  // lower triangle of W from W's unscaled column, which no lane writes
   for (int j = 0; j < nv; ++j) {
-    Li[j][j] = 1.0 / L[j][j];
-    for (int i = j + 1; i < nv; ++i) {
-      Real s = 0.0;
-      for (int k = j; k < i; ++k) s -= L[i][k] * Li[k][j];
-      Li[i][j] = s / L[i][i];
+    const Real piv = sqrt(fmax(W[j * ld + j], 1e-12));
+    const Real inv_jj = 1.0 / piv;
+    if (lane == 0) L[j * ld + j] = piv;
+    for (int i = j + 1 + lane; i < nv; i += G)
+      L[i * ld + j] = W[i * ld + j] * inv_jj;
+    const int t = nv - j - 1;
+    for (int q = lane; q < t * (t + 1) / 2; q += G) {
+      int ii, cc;
+      tri_index(q, ii, cc);
+      const int i = j + 1 + ii, c = j + 1 + cc;
+      W[i * ld + c] -= (W[i * ld + j] * inv_jj) * (W[c * ld + j] * inv_jj);
     }
+    __syncwarp(gmask);
   }
 
-  // ---- M⁻¹ = L⁻ᵀL⁻¹ and v_pred = qvel + dt·M⁻¹τ ---------------------------
-  Real vp[NV_MAX];
-  for (int d = 0; d < nv; ++d) vp[d] = 0.0;
-  for (int a = 0; a < nv; ++a) {
-    for (int b = a; b < nv; ++b) {
+  // ---- L⁻¹, one column a lane (the columns are independent) -------------
+  for (int i = lane; i < nv; i += G) invd[i] = 1.0 / L[i * ld + i];
+  __syncwarp(gmask);
+  for (int c = lane; c < nv; c += G) {
+    Li[c * ld + c] = invd[c];
+    for (int i = c + 1; i < nv; ++i) {
       Real s = 0.0;
-      for (int k = b; k < nv; ++k) s += Li[k][a] * Li[k][b];
-      o_minv[a * nv + b] = (float)s;
-      o_minv[b * nv + a] = (float)s;
-      vp[a] += s * tau[b];
-      if (b != a) vp[b] += s * tau[a];
+      for (int kk = c; kk < i; ++kk) s -= L[i * ld + kk] * Li[kk * ld + c];
+      Li[i * ld + c] = s * invd[i];
     }
   }
-  for (int d = 0; d < nv; ++d) o_vpred[d] = (float)(qv[d] + S.dt * vp[d]);
+  __syncwarp(gmask);
+
+  // ---- M⁻¹ = L⁻ᵀL⁻¹ into W, then v_pred = qvel + dt·M⁻¹τ ------------------
+  for (int q = lane; q < ntri; q += G) {
+    int bb, a;
+    tri_index(q, bb, a);
+    Real s = 0.0;
+    for (int kk = bb; kk < nv; ++kk) s += Li[kk * ld + a] * Li[kk * ld + bb];
+    W[a * ld + bb] = s;
+    W[bb * ld + a] = s;
+  }
+  __syncwarp(gmask);
+  for (int p = lane; p < nv * nv; p += G) {
+    const int a = p / nv;
+    o_minv[p] = (float)W[a * ld + p - a * nv];
+  }
+  for (int d = lane; d < nv; d += G) {
+    Real s = 0.0;
+    for (int e = 0; e < nv; ++e) s += W[d * ld + e] * tau[e];
+    o_vpred[d] = (float)(qv[d] + S.dt * s);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
 fk_vel_kernel(const SysTable* __restrict__ gsys,
               const float* __restrict__ qpos, const float* __restrict__ qvel,
               float* __restrict__ out, int E, int out_stride) {
-  __shared__ SysTable S;
+  __shared__ __align__(16) SysTable S;
   load_table(gsys, S);
   const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (env >= E) return;
   Walk k;
   fk_walk(S, qpos + env * S.nq, qvel + env * S.nv, k);
-  V3 com[NB_MAX], acom[NB_MAX];
-  fk_rows(S, k, out + env * out_stride, com, acom);
+  float* o = out + env * out_stride;
+  V3 com, acom;
+  for (int b = 0; b < S.nb; ++b) fk_body_row(S, k, b, o, com, acom);
+  for (int d = 0; d < S.nv; ++d) fk_dof_row(S, k, d, o);
+}
+
+template <int G>
+int launch_full_dyn(const void* table, const float* qpos, const float* qvel,
+                    const float* ctrl, const float* mass_scale,
+                    const float* damping_scale, const float* act_mask,
+                    float* out, int E, int out_stride, int scratch,
+                    cudaStream_t stream) {
+  constexpr int kGroups = kDynThreads / G;
+  const size_t smem = (size_t)kGroups * scratch * sizeof(Real);
+  if (smem + sizeof(SysTable) > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        full_dyn_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (E + kGroups - 1) / kGroups;
+  full_dyn_kernel<G><<<blocks, kDynThreads, smem, stream>>>(
+      static_cast<const SysTable*>(table), qpos, qvel, ctrl, mass_scale,
+      damping_scale, act_mask, out, E, out_stride, scratch);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -438,13 +553,20 @@ extern "C" int cadm_full_dyn(const void* table, const float* qpos,
                              const float* qvel, const float* ctrl,
                              const float* mass_scale,
                              const float* damping_scale, const float* act_mask,
-                             float* out, int E, int out_stride, void* stream) {
+                             float* out, int E, int out_stride, int nb, int nv,
+                             void* stream) {
   if (E <= 0) return 0;
-  const int blocks = (E + kThreads - 1) / kThreads;
-  full_dyn_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const SysTable*>(table), qpos, qvel, ctrl, mass_scale,
-      damping_scale, act_mask, out, E, out_stride);
-  return (int)cudaGetLastError();
+  if (nb < 1 || nb > NB_MAX || nv < 1 || nv > NV_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int scratch = dyn_scratch_doubles(nb, nv);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (nv <= 16)
+    return launch_full_dyn<16>(table, qpos, qvel, ctrl, mass_scale,
+                               damping_scale, act_mask, out, E, out_stride,
+                               scratch, s);
+  return launch_full_dyn<32>(table, qpos, qvel, ctrl, mass_scale,
+                             damping_scale, act_mask, out, E, out_stride,
+                             scratch, s);
 }
 
 extern "C" int cadm_fk_vel(const void* table, const float* qpos,

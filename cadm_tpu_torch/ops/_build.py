@@ -40,8 +40,8 @@ _SIGNATURES = {
     # A, b, vstar, actmu, lam0, lam_out, E, nc, iters, stream
     "cadm_pgs": [_P] * 6 + [_I] * 3 + [_P],
     # table, qpos, qvel, ctrl, mass_scale, damping_scale, act_mask, out,
-    # E, out_stride, stream
-    "cadm_full_dyn": [_P] * 8 + [_I] * 2 + [_P],
+    # E, out_stride, nb, nv, stream
+    "cadm_full_dyn": [_P] * 8 + [_I] * 4 + [_P],
     # table, qpos, qvel, out, E, out_stride, stream
     "cadm_fk_vel": [_P] * 4 + [_I] * 2 + [_P],
     # sizeof(SysTable), to check the host mirror's layout

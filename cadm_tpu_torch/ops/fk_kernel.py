@@ -5,20 +5,28 @@ K2 replaces the Pallas TPU kernel ``cadm_tpu/ops/fk_kernel.py::full_dyn_pallas``
 (body ``_full_dyn_kernel``). ``full_dyn`` launches the CUDA kernel of
 ``csrc/full_dyn.cu`` for a CUDA tensor and runs ``full_dyn_plain`` — the
 reference's composed smooth stage ``pure_one``
-(``cadm_tpu/physics/rigid/dynamics.py:413-426``) — for a CPU tensor.
+(``cadm_tpu/physics/rigid/dynamics.py:413-426``) — for a CPU tensor. The
+kernel writes every field the step reads, body rotations and world inertias
+included, into one row per env (``row_layout``); on the card ``full_dyn`` is
+that one launch and the output allocation, and returns views of the row.
+What bounds K2 is latency: the serial tree walk and the column chain of the
+factorisation. It spreads each env over a group of lanes (the walk in one
+lane, the per-body, per-dof, mass-matrix, Cholesky, L⁻¹ and M⁻¹ work across
+the group) and 2048 envs over all the SMs; ``csrc/full_dyn.cu`` has the
+details.
 
 K3 replaces ``cadm_tpu/ops/fk_kernel.py::fk_vel_pallas`` (body
 ``_fk_kernel_merged``) together with its dispatcher ``_fkvel_dispatch``
 (``cadm_tpu/physics/rigid/dynamics.py:347-399``): ``fk_vel`` launches the
-FK-velocity walk of ``csrc/full_dyn.cu`` for a CUDA tensor and derives the
-body rotations and world inertias from its quaternions, as the dispatcher's
-kernel branch does; a CPU tensor takes ``fk_vel_plain``
+FK-velocity walk of ``csrc/full_dyn.cu`` for a CUDA tensor (one thread per
+env, the walk that K2 runs) and derives the body rotations and world
+inertias from its quaternions, as the dispatcher's kernel branch does, since
+its rows hold only the nine FK fields; a CPU tensor takes ``fk_vel_plain``
 (``kinematics.forward_velocities``). No trainer path calls it: it serves
 callers that need FK without the dynamics.
 
 Both kernels read the System from a packed table (``SysTable``, one layout
-for every System), so the same binary serves all four rigid families; what
-bounds them on the card is described in ``csrc/full_dyn.cu``.
+for every System), so the same binary serves all four rigid families.
 """
 from __future__ import annotations
 
@@ -164,8 +172,10 @@ def row_layout(sys: System) -> Tuple[Dict[str, Tuple[int, int, int]], int]:
     fields = [
         ("pos", nb, 3), ("quat", nb, 4), ("com", nb, 3), ("omega", nb, 3),
         ("v_com", nb, 3), ("alpha0", nb, 3), ("a_com0", nb, 3),
-        ("dof_axis", nv, 3), ("dof_anchor", nv, 3), ("minv", nv, nv),
-        ("v_pred", nv, 1),
+        ("dof_axis", nv, 3), ("dof_anchor", nv, 3),
+        # K2 only (K3's row ends above): row-major 3×3 per body
+        ("body_rot", nb, 9), ("inertia_w", nb, 9),
+        ("minv", nv, nv), ("v_pred", nv, 1),
     ]
     off, layout = 0, {}
     for name, rows, comps in fields:
@@ -179,24 +189,57 @@ def fk_width(sys: System) -> int:
     return 22 * sys.nb + 6 * sys.nv
 
 
-def _fkvel_from_rows(sys: System, out: Tensor) -> kinematics.FKVel:
-    """FKVel from kernel rows (E, ≥ fk_width) laid out as ``row_layout``;
-    body rotations and world inertias are derived from the quaternions."""
-    layout, _ = row_layout(sys)
-    e = out.shape[0]
+@lru_cache(maxsize=None)
+def _field_shapes(sys: System) -> Tuple[Tuple[str, int, Tuple[int, ...]], ...]:
+    """(name, width, per-env shape) of each field of ``row_layout``, in
+    order: 3×3 matrices for body_rot/inertia_w, (nv,) for v_pred."""
+    out = []
+    for name, (_, rows, comps) in row_layout(sys)[0].items():
+        shape = {"body_rot": (rows, 3, 3), "inertia_w": (rows, 3, 3),
+                 "v_pred": (rows,)}.get(name, (rows, comps))
+        out.append((name, rows * comps, shape))
+    return tuple(out)
 
-    def field(name):
-        off, rows, comps = layout[name]
-        return out[:, off: off + rows * comps].view(e, rows, comps)
 
-    quat = field("quat")
+def row_fields(sys: System, out: Tensor) -> Dict[str, Tensor]:
+    """Views (E, ...) of the fields that kernel rows (E, width) hold, from
+    the start of ``row_layout``: all of them for K2's rows, the nine FK
+    fields for K3's. One split and a reshape per field, no device op."""
+    e, width = out.shape
+    names, sizes, shapes, used = [], [], [], 0
+    for name, size, shape in _field_shapes(sys):
+        if used + size > width:
+            break
+        names.append(name)
+        sizes.append(size)
+        shapes.append(shape)
+        used += size
+    if used < width:
+        sizes.append(width - used)
+    parts = out.split(sizes, dim=1)
+    return {n: p.view(e, *sh) for n, p, sh in zip(names, parts, shapes)}
+
+
+def _fkvel_from_fields(sys: System, f: Dict[str, Tensor]) -> kinematics.FKVel:
+    """FKVel from ``row_fields``. K2's rows hold ``body_rot`` and
+    ``inertia_w``; K3's end before them, so for those the two are derived
+    from the quaternions."""
+    if "inertia_w" in f:
+        rot, inertia = f["body_rot"], f["inertia_w"]
+    else:
+        rot = quat_to_mat(f["quat"])
+        inertia = kinematics.world_inertia(sys, f["quat"])
     return kinematics.FKVel(
-        body_pos=field("pos"), body_rot=quat_to_mat(quat), com=field("com"),
-        inertia_w=kinematics.world_inertia(sys, quat),
-        dof_axis=field("dof_axis"), dof_anchor=field("dof_anchor"),
-        omega=field("omega"), v_com=field("v_com"), alpha0=field("alpha0"),
-        a_com0=field("a_com0"),
+        body_pos=f["pos"], body_rot=rot, com=f["com"], inertia_w=inertia,
+        dof_axis=f["dof_axis"], dof_anchor=f["dof_anchor"], omega=f["omega"],
+        v_com=f["v_com"], alpha0=f["alpha0"], a_com0=f["a_com0"],
     )
+
+
+def _fkvel_from_rows(sys: System, out: Tensor) -> kinematics.FKVel:
+    """FKVel of kernel rows (E, ≥ fk_width) laid out as ``row_layout``:
+    views of the row, but for K3's rows the two derived fields."""
+    return _fkvel_from_fields(sys, row_fields(sys, out))
 
 
 def fk_vel_plain(sys: System, qpos: Tensor, qvel: Tensor) -> kinematics.FKVel:
@@ -279,12 +322,12 @@ def launch(
                          f"expected {list(shapes)}")
     args = tuple(x.contiguous() for x in args)
     _build.require_cuda_f32("full_dyn", *args)
-    width = row_layout(sys)[1]
+    width = sum(size for _, size, _ in _field_shapes(sys))
     out = torch.empty(e, width, device=qpos.device, dtype=torch.float32)
     code = _build.lib().cadm_full_dyn(
         _device_table(sys, qpos.device).data_ptr(),
-        *(x.data_ptr() for x in args), out.data_ptr(), e, width,
-        _build.stream_handle(qpos),
+        *(x.data_ptr() for x in args), out.data_ptr(), e, width, sys.nb,
+        sys.nv, _build.stream_handle(qpos),
     )
     _build.check(code, "full_dyn")
     launches += 1
@@ -299,9 +342,8 @@ def full_dyn(
 
     qpos (E,nq), qvel (E,nv), ctrl (E,nu), mass/damping scales (E,),
     act_mask (E,nu). A CPU tensor takes the plain version; a CUDA tensor
-    launches kernel K2 (which requires nv ≤ FULL_DYN_MAX_NV). The kernel
-    returns quaternions; body rotations and world inertias are derived from
-    them here, as the reference's kernel branch does.
+    launches kernel K2 (which requires nv ≤ FULL_DYN_MAX_NV) and returns
+    views of its rows, with no other device op.
     """
     args = (qpos, qvel, ctrl, mass_scale, damping_scale, act_mask)
     if qpos.device.type == "cpu":
@@ -309,8 +351,5 @@ def full_dyn(
     if qpos.device.type != "cuda":
         raise ValueError(f"full_dyn: unsupported device {qpos.device}")
     out = launch(sys, *args)
-    layout, _ = row_layout(sys)
-    e, nv = qpos.shape[0], sys.nv
-    off_m, off_v = layout["minv"][0], layout["v_pred"][0]
-    minv = out[:, off_m: off_m + nv * nv].view(e, nv, nv)
-    return _fkvel_from_rows(sys, out), minv, out[:, off_v: off_v + nv]
+    f = row_fields(sys, out)
+    return _fkvel_from_fields(sys, f), f["minv"], f["v_pred"]

@@ -4,8 +4,18 @@ Replaces the Pallas TPU kernel ``cadm_tpu/ops/pgs.py::pgs_solve`` (body
 ``_pgs_kernel``). ``pgs_solve`` launches the CUDA kernel of
 ``csrc/pgs.cu`` for a CUDA tensor and runs ``pgs_solve_plain`` (a batched
 port of the reference's per-env ``solve_xla``,
-``cadm_tpu/physics/rigid/dynamics.py:304-325``) for a CPU tensor. What bounds
-the kernel on the card, and its design, are described in ``csrc/pgs.cu``.
+``cadm_tpu/physics/rigid/dynamics.py:304-325``) for a CPU tensor.
+
+What bounds the kernel on the card is the sequential chain of row updates
+(a dot product, a divide and a shuffle reduction each), not bytes. It sweeps
+only the active contacts (μ > 0) of each env, over rows of 3·na instead of
+3·nc: an inactive contact's updates write zeros and its zero λ adds nothing
+to any other row. Where an inactive contact starts with a nonzero λ0, the
+first sweep runs over all contacts, which zeroes it. Each env is a group of
+16 or 32 lanes, so a row dot has short reductions and envs share a warp,
+and a shared-memory pool per block keeps many envs in flight. The details
+are in ``csrc/pgs.cu``; ``tests/test_torch_pgs_active_set.py`` checks the
+compaction's premise on the plain version.
 """
 from __future__ import annotations
 

@@ -10,9 +10,15 @@ Phases, one or more lines each, any failure raising (exit code != 0):
 
 1. the card's name and power limit; the nvcc build of the kernels;
 2. K1 (PGS contact solve) against its plain PyTorch version on 2048 random
-   SPD systems at nc 16 and 29, cold (15 sweeps) and warm-started (6);
+   SPD systems at nc 16 and 29, cold (15 sweeps) and warm-started (6), on
+   16 × 2048 of them (a launch whose blocks share their shared-memory pool
+   in rounds), and on the main path's own inputs: the (A, b, v*, μ, λ0) of
+   one cold and one warm substep of 2048 cheetahs after random-action
+   control steps, with the histogram of active contacts per env;
 3. K2 (fused smooth dynamics) against its plain version (run in float64)
-   on all four rigid Systems at 2048 random states;
+   on all four rigid Systems at 2048 random states, every field of its row
+   (body rotations and world inertias included), and a profiler count that
+   one CUDA ``full_dyn`` call runs exactly one kernel and no other device op;
 4. K3 (FK-velocity walk) against its plain version (run in float64) on all
    four rigid Systems at 2048 random states;
 5. a toy-width slice (plan → env step, 3 control steps) on the card against
@@ -102,6 +108,30 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ops(fn, reps: int = 1):
+    """[(name, count, device µs)] of every device-side op (kernels, copies,
+    sets) that ``reps`` warmed-up calls of ``fn`` run, from
+    ``torch.profiler`` (CUPTI durations)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time in ms of one call of ``fn``: unlike ``cuda_ms`` it
+    leaves out the gaps while the host launches."""
+    return sum(t for _, _, t in device_ops(fn, reps)) / reps / 1e3
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,41 +186,124 @@ def pgs_ops(nc: int, iters: int) -> int:
 
 
 # ------------------------------------------------------------- phase 2: K1 --
+def pgs_inputs(nc, dev, gen, e=E):
+    """Random SPD Delassus systems, a third of the contacts inactive:
+    (A, b, v*, μ, warm-start λ0 that is zero on the inactive contacts)."""
+    n = 3 * nc
+    G = torch.randn(e, n, n, generator=gen, device=dev)
+    A = G @ G.transpose(1, 2) / n + 0.5 * torch.eye(n, device=dev)
+    b = torch.randn(e, n, generator=gen, device=dev)
+    vstar = torch.randn(e, nc, generator=gen, device=dev).abs()
+    pick = torch.randint(0, 3, (e, nc), generator=gen, device=dev)
+    actmu = torch.tensor([0.0, 0.5, 1.0], device=dev)[pick]
+    inactive = (actmu == 0).repeat_interleave(3, dim=1)
+    warm0 = torch.randn(e, n, generator=gen, device=dev).abs() * ~inactive
+    return A, b, vstar, actmu, warm0
+
+
+def pgs_case(pgs, label, A, b, vstar, actmu, lam0, iters, timed=True):
+    """K1 against its plain version on one problem; times both if asked.
+    The bound counts the function's bytes and operations at the full nc,
+    whatever the kernel skips."""
+    e, nc = vstar.shape
+    n = 3 * nc
+    inactive = (actmu <= 0).repeat_interleave(3, dim=1)
+    lam = pgs.pgs_solve(A, b, vstar, actmu, lam0, iters=iters)
+    ref = pgs.pgs_solve_plain(A, b, vstar, actmu, lam0, iters)
+    torch.cuda.synchronize()
+    err = (lam - ref).abs().max().item()
+    zero = bool((lam[inactive] == 0).all())
+    r = dict(label=label, nc=nc, iters=iters, err=err, zero=zero)
+    msg = ""
+    if timed:
+        def call():
+            return pgs.pgs_solve(A, b, vstar, actmu, lam0, iters=iters)
+
+        r["ms"] = device_ms(call)
+        r["call_ms"] = cuda_ms(call, reps=20)
+        r["plain_ms"] = cuda_ms(lambda: pgs.pgs_solve_plain(
+            A, b, vstar, actmu, lam0, iters), reps=2)
+        # A, b, v*, μ, λ0 read once, λ written once
+        r["bound_ms"], r["bound_by"] = bound(
+            4 * e * (n * n + 3 * n + 2 * nc), e * pgs_ops(nc, iters),
+            FP32_FLOPS)
+        msg = (f" kernel {r['ms']:.4f} ms (device), {r['call_ms']:.4f} ms a "
+               f"call back to back, plain {r['plain_ms']:.3f} ms, bound "
+               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(f"K1 pgs {label} nc={nc} iters={iters} E={e}: max_abs_err="
+          f"{err:.3e} inactive_zero={zero}{msg}")
+    return r
+
+
 def check_pgs(pgs, dev, gen):
     results = []
     for nc in (16, 29):
-        n = 3 * nc
-        G = torch.randn(E, n, n, generator=gen, device=dev)
-        A = G @ G.transpose(1, 2) / n + 0.5 * torch.eye(n, device=dev)
-        b = torch.randn(E, n, generator=gen, device=dev)
-        vstar = torch.randn(E, nc, generator=gen, device=dev).abs()
-        pick = torch.randint(0, 3, (E, nc), generator=gen, device=dev)
-        actmu = torch.tensor([0.0, 0.5, 1.0], device=dev)[pick]
-        inactive = (actmu == 0).repeat_interleave(3, dim=1)
-        warm0 = torch.randn(E, n, generator=gen, device=dev).abs() * ~inactive
+        A, b, vstar, actmu, warm0 = pgs_inputs(nc, dev, gen)
         for tag, iters, lam0 in (("cold", 15, torch.zeros_like(b)),
                                  ("warm", 6, warm0)):
-            lam = pgs.pgs_solve(A, b, vstar, actmu, lam0, iters=iters)
-            ref = pgs.pgs_solve_plain(A, b, vstar, actmu, lam0, iters)
-            torch.cuda.synchronize()
-            err = (lam - ref).abs().max().item()
-            zero = bool((lam[inactive] == 0).all())
-            ms = cuda_ms(lambda: pgs.pgs_solve(A, b, vstar, actmu, lam0,
-                                               iters=iters), reps=20)
-            plain_ms = cuda_ms(lambda: pgs.pgs_solve_plain(A, b, vstar, actmu,
-                                                           lam0, iters), reps=2)
-            # A, b, v*, μ, λ0 read once, λ written once
-            bound_ms, bound_by = bound(4 * E * (n * n + 3 * n + 2 * nc),
-                                       E * pgs_ops(nc, iters), FP32_FLOPS)
-            print(f"K1 pgs nc={nc} {tag} iters={iters} E={E}: max_abs_err="
-                  f"{err:.3e} inactive_zero={zero} kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-            results.append(dict(nc=nc, tag=tag, err=err, zero=zero, ms=ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by))
+            results.append(dict(pgs_case(pgs, tag, A, b, vstar, actmu, lam0,
+                                         iters), tag=tag))
+    # 16 × 2048 envs: the launch shrinks each block's pool to one env's worst
+    # case, so a block's envs take turns
+    A, b, vstar, actmu, _ = pgs_inputs(16, dev, gen, e=16 * E)
+    results.append(dict(pgs_case(pgs, "pool-rounds cold", A, b, vstar, actmu,
+                                 torch.zeros_like(b), 15, timed=False),
+                        tag="rounds"))
     bad = [r for r in results if not (r["err"] <= LAM_ATOL and r["zero"])]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+    return results
+
+
+def capture_main_path_pgs(envs, rdyn, dev, steps=10):
+    """K1's inputs on the main path: 2048 cheetahs (the preset's env and
+    batch) take ``steps`` random-action control steps so that they reach the
+    ground; the next step's first two solves (cold, then warm) are kept."""
+    env = envs.make("half_cheetah", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states = env.reset(gen, E)
+    low, high = env.action_limits()
+
+    def act():
+        u = torch.rand(E, env.act_dim, generator=gen, device=dev)
+        return low + (high - low) * u
+
+    for _ in range(steps):
+        states = env.step(states, act(), gen)[0]
+    captured = []
+    solve = rdyn.pgs_solve
+
+    def keep(A, b, vstar, actmu, lam0, *, iters):
+        if len(captured) < 2:
+            captured.append(tuple(x.clone() for x in (A, b, vstar, actmu, lam0))
+                            + (iters,))
+        return solve(A, b, vstar, actmu, lam0, iters=iters)
+
+    rdyn.pgs_solve = keep
+    try:
+        env.step(states, act(), gen)
+    finally:
+        rdyn.pgs_solve = solve
+    torch.cuda.synchronize()
+    return dict(zip(("cold", "warm"), captured))
+
+
+def check_pgs_main_path(pgs, captured):
+    """K1 on the main path's own inputs, with the histogram of active
+    contacts per env."""
+    results = []
+    for tag, (A, b, vstar, actmu, lam0, iters) in captured.items():
+        na = (actmu > 0).sum(1)
+        hist = torch.bincount(na, minlength=vstar.shape[1] + 1).tolist()
+        print(f"K1 main path {tag}: active contacts per env (count of envs "
+              f"with 0, 1, ... {vstar.shape[1]}): {hist}; mean "
+              f"{na.float().mean().item():.3f}")
+        results.append(dict(pgs_case(pgs, f"main-path {tag}", A, b, vstar,
+                                     actmu, lam0, iters), tag=tag, hist=hist))
+    bad = [r for r in results if not (r["err"] <= LAM_ATOL and r["zero"])]
+    if bad:
+        raise AssertionError(f"K1 disagrees with its plain version on the "
+                             f"main path's inputs: {bad}")
     return results
 
 
@@ -243,22 +356,31 @@ def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
         ref = fk_kernel.full_dyn_plain(sys_, *(a.double() for a in args))
         e_kernel = errs(out, ref)
         e_plain32 = errs(fk_kernel.full_dyn_plain(sys_, *args), ref)
-        ms = cuda_ms(lambda: fk_kernel.launch(sys_, *args), reps=20)
+        ms = device_ms(lambda: fk_kernel.launch(sys_, *args))
+        call_ms = cuda_ms(lambda: fk_kernel.launch(sys_, *args), reps=20)
         wrapper_ms = cuda_ms(lambda: fk_kernel.full_dyn(sys_, *args), reps=20)
         plain_ms = cuda_ms(lambda: fk_kernel.full_dyn_plain(sys_, *args), reps=2)
         width = fk_kernel.row_layout(sys_)[1]
         n_in = sys_.nq + sys_.nv + 2 * sys_.nu + 2
         bound_ms, bound_by = bound(4 * E * (n_in + width),
                                    E * full_dyn_ops(sys_), FP64_FLOPS)
+        ops = [(name, n) for name, n, _ in
+               device_ops(lambda: fk_kernel.full_dyn(sys_, *args))]
         fmt = lambda e: " ".join(f"{k}={v:.3e}" for k, v in e.items())  # noqa: E731
         print(f"K2 full_dyn {asset} nv={sys_.nv} E={E}: kernel vs plain(f64) "
               f"{fmt(e_kernel)}; plain(f32) vs plain(f64) {fmt(e_plain32)}; "
-              f"kernel {ms:.4f} ms, wrapper (+ derived rotations/inertias) "
-              f"{wrapper_ms:.4f} ms, plain(f32) {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+              f"kernel {ms:.4f} ms (device), {call_ms:.4f} ms a launch back "
+              f"to back, wrapper {wrapper_ms:.4f} ms, plain(f32) "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"device ops of one full_dyn call: {ops}")
+        if len(ops) != 1 or "full_dyn_kernel" not in ops[0][0] \
+                or ops[0][1] != 1:
+            raise AssertionError(f"full_dyn on the card ran {ops}, not "
+                                 f"exactly one full_dyn_kernel")
         results.append(dict(asset=asset, errs=e_kernel, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by))
+                            call_ms=call_ms, wrapper_ms=wrapper_ms,
+                            plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by))
     bad = [r for r in results if not (
         r["errs"]["minv"] <= MINV_ATOL and r["errs"]["v_pred"] <= VPRED_ATOL
         and r["errs"]["fk"] <= FK_ATOL)]
@@ -285,7 +407,9 @@ def check_fk_vel(fk_kernel, load_system, ASSETS, dev):
         off, nb, _ = fk_kernel.row_layout(sys_)[0]["quat"]
         quat = rows[:, off: off + 4 * nb].view(E, nb, 4)
         err_rot = (quat_to_mat(quat).double() - ref.body_rot).abs().max().item()
-        ms = cuda_ms(lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel), reps=20)
+        ms = device_ms(lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel))
+        call_ms = cuda_ms(lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel),
+                          reps=20)
         wrapper_ms = cuda_ms(lambda: fk_kernel.fk_vel(sys_, qpos, qvel), reps=20)
         plain_ms = cuda_ms(lambda: fk_kernel.fk_vel_plain(sys_, qpos, qvel),
                            reps=2)
@@ -294,11 +418,12 @@ def check_fk_vel(fk_kernel, load_system, ASSETS, dev):
             E * fk_ops(sys_), FP64_FLOPS)
         print(f"K3 fk_vel {asset} nb={sys_.nb} nv={sys_.nv} E={E}: kernel vs "
               f"plain(f64) fields {err:.3e}, quat_to_mat(quat) vs body_rot "
-              f"{err_rot:.3e}; kernel {ms:.4f} ms, wrapper (+ derived "
+              f"{err_rot:.3e}; kernel {ms:.4f} ms (device), {call_ms:.4f} ms "
+              f"a launch back to back, wrapper (+ derived "
               f"rotations/inertias) {wrapper_ms:.4f} ms, plain(f32) "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         results.append(dict(asset=asset, err=max(err, err_rot), ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by))
     bad = [r for r in results if not r["err"] <= FK_ATOL]
     if bad:
@@ -536,7 +661,8 @@ def run_full_slice(PRESETS, pgs, fk_kernel):
 def kernel_entry(name, source, replaces, launches, err, main, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "ms": main["ms"], "call_ms": main["call_ms"],
+            "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, **extra}
 
@@ -547,9 +673,11 @@ def main() -> int:
               "False", file=sys.stderr)
         return 1
     # imported only once a card is known to exist
+    from cadm_tpu_torch import envs
     from cadm_tpu_torch.cli.presets import PRESETS
     from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
     from cadm_tpu_torch.ops import _build, fk_kernel, pgs
+    from cadm_tpu_torch.physics.rigid import dynamics as rdyn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -564,6 +692,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = check_pgs(pgs, dev, gen)
+    k1_path = check_pgs_main_path(pgs, capture_main_path_pgs(envs, rdyn, dev))
     k2 = check_full_dyn(fk_kernel, load_system, ASSETS, dev)
     k3 = check_fk_vel(fk_kernel, load_system, ASSETS, dev)
     check_toy_slice(PRESETS)
@@ -577,7 +706,8 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_entry("pgs_solve", "cadm_tpu_torch/csrc/pgs.cu",
                      "cadm_tpu/ops/pgs.py:79", n_pgs,
-                     max(r["err"] for r in k1), k1_main),
+                     max(r["err"] for r in k1 + k1_path), k1_main,
+                     main_path_ms={r["tag"]: r["ms"] for r in k1_path}),
         kernel_entry("full_dyn", "cadm_tpu_torch/csrc/full_dyn.cu",
                      "cadm_tpu/ops/fk_kernel.py:535", n_fd,
                      max(max(r["errs"].values()) for r in k2), k2_main),

@@ -35,7 +35,7 @@ def dev():
 @pytest.mark.parametrize("nc", [16, 29])
 @pytest.mark.parametrize("iters", [15, 6])
 def test_pgs_kernel_matches_plain(dev, nc, iters):
-    e, n = 301, 3 * nc  # a ragged env count (blocks hold up to 4 envs)
+    e, n = 301, 3 * nc  # a ragged env count (blocks hold 4 or 2 envs)
     g = torch.Generator(device=dev).manual_seed(nc + iters)
     G = torch.randn(e, n, n, generator=g, device=dev)
     A = G @ G.transpose(1, 2) / n + 0.5 * torch.eye(n, device=dev)
@@ -56,7 +56,7 @@ def test_pgs_kernel_matches_plain(dev, nc, iters):
 @pytest.mark.parametrize("asset", ASSETS)
 def test_full_dyn_kernel_matches_plain_float64(dev, asset):
     sys_ = load_system(asset)
-    e = 257  # ragged against the 128-thread blocks
+    e = 257  # ragged against K2's blocks of 4 (nv ≤ 16) or 2 envs
     rng = np.random.RandomState(0)
     qpos = sys_.default_qpos() + rng.uniform(-0.1, 0.1, (e, sys_.nq))
     for j in range(sys_.nj):
@@ -106,6 +106,120 @@ def test_fk_vel_kernel_matches_plain_float64(dev, asset):
                             ones, ones, torch.ones(e, sys_.nu, device=dev))
     assert torch.equal(rows[:, :fk_kernel.fk_width(sys_)],
                        fk_kernel.launch_fk_vel(sys_, qpos, qvel))
+
+
+def pgs_problem(dev, e, nc, seed):
+    """Random SPD systems with a mix of inactive contacts (μ = 0), λ0 zero
+    on the inactive ones."""
+    n = 3 * nc
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn(e, n, n, generator=g, device=dev)
+    A = G @ G.transpose(1, 2) / n + 0.5 * torch.eye(n, device=dev)
+    b = torch.randn(e, n, generator=g, device=dev)
+    vstar = torch.randn(e, nc, generator=g, device=dev).abs()
+    actmu = torch.tensor([0.0, 0.5, 1.0], device=dev)[
+        torch.randint(0, 3, (e, nc), generator=g, device=dev)]
+    inactive = (actmu == 0).repeat_interleave(3, dim=1)
+    lam0 = torch.randn(e, n, generator=g, device=dev).abs() * ~inactive
+    return A, b, vstar, actmu, lam0
+
+
+def assert_pgs_matches_plain(A, b, vstar, actmu, lam0, iters):
+    before = pgs.launches
+    lam = pgs.pgs_solve(A, b, vstar, actmu, lam0, iters=iters)
+    assert pgs.launches == before + 1
+    ref = pgs.pgs_solve_plain(A, b, vstar, actmu, lam0, iters)
+    assert (lam - ref).abs().max().item() <= LAM_ATOL
+    assert torch.all(lam[(actmu <= 0).repeat_interleave(3, dim=1)] == 0)
+
+
+# nc 4, 16 and 29 run 16 lanes per env (4 envs a block), 40 runs 32 (2 a
+# block); the env counts leave a ragged last block
+@pytest.mark.parametrize("nc", [4, 16, 29, 40])
+@pytest.mark.parametrize("e", [1, 5, 9, 67])
+def test_pgs_kernel_ragged_env_counts(dev, nc, e):
+    assert_pgs_matches_plain(*pgs_problem(dev, e, nc, seed=e * nc), iters=6)
+
+
+@pytest.mark.parametrize("nc", [16, 29])
+@pytest.mark.parametrize("iters", [1, 6, 15])
+@pytest.mark.parametrize("case", ["none_active", "all_active",
+                                  "inactive_nonzero_lam0"])
+def test_pgs_kernel_active_set_edges(dev, case, iters, nc):
+    """Envs with na = 0 and na = nc, and a nonzero λ0 on an inactive
+    contact (the first sweep then runs over every contact)."""
+    e = 37
+    A, b, vstar, actmu, lam0 = pgs_problem(dev, e, nc, seed=nc + iters)
+    if case == "none_active":
+        actmu[::2] = 0.0
+        lam0[::2] = 0.0
+    elif case == "all_active":
+        actmu[::2] = 0.7
+        lam0[::2] = torch.rand(lam0[::2].shape, device=dev)
+    else:
+        lam0[:, :] = torch.rand(lam0.shape, device=dev)  # also on inactive
+        actmu[3] = 0.0  # one env with na = 0 but a nonzero λ0
+    assert_pgs_matches_plain(A, b, vstar, actmu, lam0, iters)
+
+
+def test_pgs_kernel_pool_rounds(dev):
+    """At 16 × 2048 envs the launch shrinks each block's pool to one env's
+    worst case, so a block's envs solve in turns."""
+    assert_pgs_matches_plain(*pgs_problem(dev, 16 * 2048, 16, seed=3),
+                             iters=15)
+
+
+@pytest.mark.parametrize("asset", ASSETS)
+def test_full_dyn_rows_hold_rotations_and_inertias(dev, asset):
+    """K2's body_rot and inertia_w fields, read from the raw rows, against
+    the plain version run in float64."""
+    sys_ = load_system(asset)
+    e = 131
+    rng = np.random.RandomState(5)
+    qpos = sys_.default_qpos() + rng.uniform(-0.3, 0.3, (e, sys_.nq))
+    for j in range(sys_.nj):
+        if sys_.jnt_type[j] == 0:
+            a = int(sys_.jnt_qposadr[j]) + 3
+            qpos[:, a: a + 4] /= np.linalg.norm(qpos[:, a: a + 4], axis=-1,
+                                                keepdims=True)
+    args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (
+        qpos, rng.uniform(-1, 1, (e, sys_.nv)), rng.uniform(-1, 1, (e, sys_.nu)),
+        rng.uniform(0.8, 1.2, e), rng.uniform(0.8, 1.2, e),
+        np.ones((e, sys_.nu)))]
+    rows = fk_kernel.launch(sys_, *args)
+    ref = fk_kernel.full_dyn_plain(sys_, *(a.double() for a in args))[0]
+    layout, width = fk_kernel.row_layout(sys_)
+    assert rows.shape == (e, width)
+    for name in ("body_rot", "inertia_w"):
+        off, nb, comps = layout[name]
+        got = rows[:, off: off + nb * comps].view(e, nb, 3, 3).double()
+        err = (got - getattr(ref, name)).abs().max().item()
+        assert err <= FK_ATOL, name
+
+
+@pytest.mark.parametrize("asset", ["half_cheetah", "slim_humanoid"])
+def test_full_dyn_on_the_card_is_one_kernel(dev, asset):
+    """A CUDA full_dyn call runs one kernel and no other device op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys_ = load_system(asset)
+    e = 64
+    args = [torch.zeros(e, sys_.nq, device=dev) + torch.tensor(
+                sys_.default_qpos(), dtype=torch.float32, device=dev),
+            torch.zeros(e, sys_.nv, device=dev), torch.zeros(e, sys_.nu, device=dev),
+            torch.ones(e, device=dev), torch.ones(e, device=dev),
+            torch.ones(e, sys_.nu, device=dev)]
+    fk_kernel.full_dyn(sys_, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fk_kernel.full_dyn(sys_, *args)
+        torch.cuda.synchronize()
+    ops = [(ev.key, ev.count) for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    assert len(ops) == 1 and "full_dyn_kernel" in ops[0][0] \
+        and ops[0][1] == 1, ops
 
 
 def test_step_n_on_the_card_matches_the_cpu(dev):
