@@ -1,11 +1,14 @@
-"""Experiment config and the flagship preset (counterpart of
+"""Experiment config and the model-based rigid presets (counterpart of
 cadm_tpu/cli/presets.py).
 
 ``ExperimentConfig`` carries the reference's knobs for the model-based
 trainer; ``build(device)`` assembles env, model, planner and trainer on one
 device (the card unless the caller asks for the CPU). The port builds
-``trainer="mb"`` with ``model`` ∈ {cadm, vanilla}, one deterministic member,
-on the ported envs (HalfCheetah).
+``trainer="mb"`` with ``model`` ∈ {cadm, vanilla}, one member or a PE-TS
+ensemble, on the five rigid families (half_cheetah, hopper, ant,
+cripple_ant, slim_humanoid). Still unported, each raising
+``NotImplementedError``: the PPO trainer, the stacked/rnn/grbal models,
+``normalize_env`` and the analytic envs (cartpole, pendulum).
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ from cadm_tpu_torch.planners.mpc import MPCPlanner, PlannerConfig
 from cadm_tpu_torch.train.mb_trainer import MBTrainer, TrainerConfig
 
 CONTEXT_OF_MODEL = {"vanilla": "none", "cadm": "encoder"}
+PORTED = ("trainer='mb'; model 'cadm'/'vanilla' with any ensemble size; "
+          "envs half_cheetah, hopper, ant, cripple_ant, slim_humanoid; "
+          "normalize_env=False")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,10 +34,18 @@ class ExperimentConfig:
     env: str = "half_cheetah"
     n_envs: int = 16
     randomization: str = "discrete"   # paper scale sets | "continuous" bands
+    normalize_env: bool = False       # the reference's NormalizedEnv: unported
+    # episode protocol overrides (None = the family's default);
+    # terminate_unhealthy=False, env_horizon=1000 is the MBBL protocol
+    terminate_unhealthy: Optional[bool] = None
     env_horizon: Optional[int] = None
     # model
     model: str = "cadm"           # vanilla | cadm
-    ensemble: int = 1
+    ensemble: int = 1             # >1 = PE-TS-style probabilistic ensemble
+    # None = probabilistic heads iff ensemble > 1 (the PETS convention)
+    probabilistic: Optional[bool] = None
+    mean_anchor: float = 1.0      # see DynamicsConfig.mean_anchor
+    detach_logvar_trunk: bool = False
     hidden: Tuple[int, ...] = (200, 200, 200, 200)
     z_dim: int = 10
     history_k: int = 10
@@ -45,6 +59,7 @@ class ExperimentConfig:
     cem_iters: int = 5
     cem_elites: int = 20
     warm_start: bool = False
+    ensemble_eval: str = "ts1"    # ts1 | mean | ts1_exact (see planners/mpc.py)
     # training loop
     n_itr: int = 20
     steps_per_itr: int = 200
@@ -62,6 +77,8 @@ class ExperimentConfig:
     early_stop_patience: int = 2
     early_stop_metric: str = "loss"   # "loss" | "fwd_mse"
     epoch_updates_cap: int = 400
+    # symmetry-group train-batch augmentation (envs with symmetry_maps())
+    symmetry_aug: bool = False
 
     def build(self, device="cuda"):
         """(env, model, planner, trainer) on ``device``.
@@ -75,25 +92,30 @@ class ExperimentConfig:
                 f"n_envs/eval_envs must be >= 1, got {self.n_envs}/{self.eval_envs}"
             )
         if self.trainer != "mb" or self.model not in CONTEXT_OF_MODEL \
-                or self.ensemble != 1:
+                or self.normalize_env:
             raise NotImplementedError(
-                "the port builds trainer='mb' with model 'cadm'/'vanilla' and "
-                f"one member; got trainer={self.trainer!r} model="
-                f"{self.model!r} ensemble={self.ensemble}"
+                f"not ported: trainer={self.trainer!r} model={self.model!r} "
+                f"normalize_env={self.normalize_env} (ported: {PORTED})"
             )
         env = make(self.env, randomization=self.randomization, device=device,
+                   terminate_unhealthy=self.terminate_unhealthy,
                    horizon=self.env_horizon)
         model = Dynamics(
             DynamicsConfig(
                 obs_dim=env.obs_dim,
                 act_dim=env.act_dim,
                 hidden=self.hidden,
+                n_members=self.ensemble,
+                probabilistic=(self.ensemble > 1 if self.probabilistic is None
+                               else self.probabilistic),
                 context=CONTEXT_OF_MODEL[self.model],
                 z_dim=self.z_dim,
                 history_k=self.history_k,
                 future_m=self.future_m,
                 beta_backward=self.beta_backward,
                 lr=self.lr,
+                mean_anchor=self.mean_anchor,
+                detach_logvar_trunk=self.detach_logvar_trunk,
             ),
             device=device,
         )
@@ -105,6 +127,7 @@ class ExperimentConfig:
                 cem_iters=self.cem_iters,
                 cem_elites=self.cem_elites,
                 warm_start=self.warm_start,
+                ensemble_eval=self.ensemble_eval,
             ),
             model,
             env.reward,
@@ -131,18 +154,50 @@ class ExperimentConfig:
                 early_stop_patience=self.early_stop_patience,
                 early_stop_metric=self.early_stop_metric,
                 epoch_updates_cap=self.epoch_updates_cap,
+                symmetry_aug=self.symmetry_aug,
             ),
         )
         return env, model, planner, trainer
 
 
+# The reference's model-based rigid presets with its values
+# (cadm_tpu/cli/presets.py); its cartpole, pendulum and PPO presets are not
+# ported.
 PRESETS = {
     # HalfCheetah, randomized mass/damping, CaDM fwd+bwd + CEM @ 2048 envs
-    # (the reference's values, cadm_tpu/cli/presets.py)
     "halfcheetah_cadm_cem": ExperimentConfig(
         env="half_cheetah", model="cadm", planner="cem", fit_protocol="epochs",
         n_envs=2048, n_candidates=200, plan_horizon=30,
         steps_per_itr=1000, n_itr=20, buffer_capacity=20000,
+        model_updates_per_itr=2000, batch_size=256,
+    ),
+    # Ant + CrippledAnt, CaDM PE-TS ensemble (5 members) + CEM
+    "ant_cadm_ensemble_cem": ExperimentConfig(
+        env="ant", model="cadm", ensemble=5, planner="cem",
+        fit_protocol="epochs",
+        n_envs=1024, n_candidates=200, plan_horizon=30,
+        steps_per_itr=1000, n_itr=20, buffer_capacity=20000,
+        model_updates_per_itr=2000, batch_size=256,
+    ),
+    "cripple_ant_cadm_ensemble_cem": ExperimentConfig(
+        env="cripple_ant", model="cadm", ensemble=5, planner="cem",
+        fit_protocol="epochs",
+        n_envs=1024, n_candidates=200, plan_horizon=30,
+        steps_per_itr=1000, n_itr=20, buffer_capacity=20000,
+        model_updates_per_itr=2000, batch_size=256,
+    ),
+    # SlimHumanoid / Hopper, CaDM + CEM @ 512 envs
+    "slim_humanoid_cadm_cem": ExperimentConfig(
+        env="slim_humanoid", model="cadm", planner="cem",
+        fit_protocol="epochs",
+        n_envs=512, n_candidates=200, plan_horizon=30,
+        steps_per_itr=500, n_itr=20, buffer_capacity=10000,
+        model_updates_per_itr=2000, batch_size=256,
+    ),
+    "hopper_cadm_cem": ExperimentConfig(
+        env="hopper", model="cadm", planner="cem", fit_protocol="epochs",
+        n_envs=512, n_candidates=200, plan_horizon=30,
+        steps_per_itr=500, n_itr=20, buffer_capacity=10000,
         model_updates_per_itr=2000, batch_size=256,
     ),
 }

@@ -2,8 +2,12 @@
 
 Examples:
   python -m cadm_tpu_torch.cli.run --preset halfcheetah_cadm_cem
-  python -m cadm_tpu_torch.cli.run --preset halfcheetah_cadm_cem \\
-      --n-itr 2 --steps-per-itr 20 --env-horizon 10 --log-dir /tmp/runs
+  python -m cadm_tpu_torch.cli.run --preset cripple_ant_cadm_ensemble_cem \\
+      --n-itr 2 --steps-per-itr 20 --env-horizon 10 --log-dir runs
+
+Presets: halfcheetah_cadm_cem, hopper_cadm_cem, slim_humanoid_cadm_cem,
+ant_cadm_ensemble_cem, cripple_ant_cadm_ensemble_cem (the reference's
+values).
 
 One flag per ``ExperimentConfig`` field overrides the preset; ``--device``
 (default ``cuda``) picks the card or, for tests, ``cpu``. Writes

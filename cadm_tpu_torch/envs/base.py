@@ -34,14 +34,21 @@ class Env:
     act_dim: int
     horizon: int
 
+    dt: float
+
     def __init__(self, randomization: str = "discrete",
+                 terminate_unhealthy: "bool | None" = None,
                  horizon: "int | None" = None, device="cuda"):
         """``randomization``: "discrete" (the paper's per-mode scale sets)
-        or "continuous" (uniform bands). ``horizon`` overrides the family's
-        episode length. ``device`` holds every tensor the env makes; a CUDA
+        or "continuous" (uniform bands). ``terminate_unhealthy`` and
+        ``horizon`` override the family's healthy termination and episode
+        length (``False``/1000 is the MBBL fixed-horizon protocol of the
+        reference). ``device`` holds every tensor the env makes; a CUDA
         device (the default) raises where there is no card."""
         self.randomization = randomization
         self.device = resolve_device(device)
+        if terminate_unhealthy is not None:
+            self.terminate_unhealthy = terminate_unhealthy
         if horizon is not None:
             self.horizon = horizon
 
@@ -64,6 +71,14 @@ class Env:
     def terminated(self, params: PyTree, phys: PyTree, obs: Tensor) -> Tensor:
         """Early-termination predicate per env (False for most families)."""
         return torch.zeros(obs.shape[0], dtype=torch.bool, device=obs.device)
+
+    def symmetry_maps(self):
+        """Exact symmetry group of the dynamics and reward, for the
+        training-batch augmentation (``TrainerConfig.symmetry_aug``): None,
+        or {'obs': (G, obs_dim, obs_dim), 'act': (G, act_dim, act_dim)}
+        numpy arrays whose element k maps valid transitions onto valid
+        transitions of the k-relabeled hidden params (CrippleAnt)."""
+        return None
 
     # Healthy-magnitude bounds for training data (inf = disabled); see the
     # reference for why blown-up transitions are masked out of training.

@@ -41,6 +41,25 @@ def load_system(asset: str) -> System:
     return System(**kwargs)
 
 
+def uniform(gen: torch.Generator, shape, lo: float, hi: float) -> Tensor:
+    """U(lo, hi) draws of ``shape`` on the generator's device."""
+    u = torch.rand(*shape, generator=gen, device=gen.device)
+    return lo + (hi - lo) * u
+
+
+def n_envs(params: PyTree) -> int:
+    """The env count of a hidden-params dataclass (its leading axis)."""
+    return getattr(params, dataclasses.fields(params)[0].name).shape[0]
+
+
+def normalize_root_quat(qpos: Tensor) -> Tensor:
+    """``qpos`` (E, nq) with its free root's quaternion qpos[:, 3:7]
+    renormalised."""
+    quat = qpos[:, 3:7]
+    quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True)
+    return torch.cat([qpos[:, :3], quat, qpos[:, 7:]], dim=-1)
+
+
 @dataclasses.dataclass
 class RigidPhys:
     qpos: Tensor  # (E, nq)
@@ -62,6 +81,7 @@ class RigidEnv(Env):
     def __init__(self, randomization: str = "discrete", **overrides):
         super().__init__(randomization, **overrides)
         self.sys = load_system(self.asset)
+        self.dt = self.sys.dt * self.frame_skip
         self._scale = canonical(randomization)
 
     def sample_params(self, gen: torch.Generator, mode: int, n: int) -> PyTree:
@@ -71,6 +91,9 @@ class RigidEnv(Env):
         )
 
     def rigid_params(self, params: PyTree) -> rdyn.RigidParams:
+        """The engine's per-env parameters of the hidden ``params``; a family
+        whose hidden context is another (CrippleAnt's ``act_mask``)
+        overrides it."""
         n = params.mass_scale.shape[0]
         return rdyn.RigidParams(
             mass_scale=params.mass_scale,

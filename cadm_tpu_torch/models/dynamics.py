@@ -5,7 +5,14 @@ window → latent z) and the plain model (``context='none'``), each with
 member-stacked forward and backward heads predicting normalized Δobs; the
 joint loss L_fwd + β·L_bwd over M future steps sharing one z; and the
 optimizer step, ``clip_by_global_norm(grad_clip)`` then Adam(lr) exactly as
-the reference's optax chain. The port supports one deterministic member.
+the reference's optax chain.
+
+``n_members > 1`` with ``probabilistic`` is the PE-TS ensemble: mean and
+log-variance heads, the log-variance kept inside learned soft bounds
+[min_logvar, max_logvar] with a penalty on their width, a Gaussian NLL (by
+default the reference's decoupled form: MSE on the means plus the NLL around
+the frozen means) and bootstrap minibatches per member. The members run as
+one batched product over the member axis, in the loss as in prediction.
 """
 from __future__ import annotations
 
@@ -21,7 +28,9 @@ from cadm_tpu_torch.core.types import (
     tree_map,
     tree_unflatten,
 )
-from cadm_tpu_torch.models.nets import MLP, member, mlp_apply, mlp_init
+import torch.nn.functional as F
+
+from cadm_tpu_torch.models.nets import MLP, linear, mlp_apply, mlp_init, swish
 
 Tensor = torch.Tensor
 CONTEXTS = ("none", "encoder")
@@ -43,6 +52,15 @@ class DynamicsConfig:
     beta_backward: float = 0.5     # β in L_fwd + β·L_bwd
     lr: float = 1e-3
     grad_clip: float = 10.0
+    logvar_penalty: float = 0.01   # PETS bound-tightness penalty
+    # Probabilistic members: the loss is mean_anchor · Σ (mean − target)²
+    # + the Gaussian NLL around the stop-gradient means (the reference's
+    # decoupled-sg-v1); 0 restores the joint PETS NLL.
+    mean_anchor: float = 1.0
+    # Probabilistic members: the log-variance columns of the last layer read
+    # the trunk's features through a stop-gradient, so the NLL trains no
+    # trunk weight (the reference's opt-in r5 variant).
+    detach_logvar_trunk: bool = False
 
     @property
     def hist_dim(self) -> int:
@@ -129,11 +147,10 @@ class Dynamics:
     b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
     def __init__(self, config: DynamicsConfig, device="cuda"):
-        if config.context not in CONTEXTS or config.n_members != 1 \
-                or config.probabilistic:
+        if config.context not in CONTEXTS or config.n_members < 1:
             raise NotImplementedError(
-                "the port supports context 'none'/'encoder' with one "
-                f"deterministic member, got {config}"
+                f"the port supports context {CONTEXTS} with n_members >= 1 "
+                f"(deterministic or probabilistic), got {config}"
             )
         self.cfg = config
         self.device = resolve_device(device)
@@ -150,6 +167,11 @@ class Dynamics:
         params["fwd"] = mlp_init(gen, head_sizes, c.n_members)
         if c.context == "encoder" and c.backward:
             params["bwd"] = mlp_init(gen, head_sizes, c.n_members)
+        if c.probabilistic:
+            params["max_logvar"] = torch.full((c.obs_dim,), 0.5,
+                                              device=gen.device)
+            params["min_logvar"] = torch.full((c.obs_dim,), -10.0,
+                                              device=gen.device)
         return params
 
     def init_state(self, gen: torch.Generator) -> DynamicsState:
@@ -195,51 +217,106 @@ class Dynamics:
     def _head_out(self, head_params: MLP, params: dict, norm: NormStats,
                   x_in: Tensor, act: Tensor, z: Tensor
                   ) -> Tuple[Tensor, Optional[Tensor]]:
-        """Normalized-delta prediction (mean, None) from one head."""
+        """Normalized-delta prediction (mean, logvar | None) from one head.
+
+        ``head_params`` is one member's MLP, or the member-stacked MLP with
+        a leading member axis on the inputs. A probabilistic head's
+        log-variance is kept inside [min_logvar, max_logvar] by the PETS
+        soft bounds.
+        """
+        c = self.cfg
         nx = (x_in - norm.obs_mean) / norm.obs_std
         na = (act - norm.act_mean) / norm.act_std
-        return mlp_apply(head_params, torch.cat([nx, na, z], dim=-1)), None
+        inp = torch.cat([nx, na, z], dim=-1)
+        if c.probabilistic and c.detach_logvar_trunk:
+            # the same values as the fused apply; the logvar columns see
+            # the trunk's features through a stop-gradient
+            feats = inp
+            for layer in head_params[:-1]:
+                feats = swish(linear(layer, feats))
+            last = head_params[-1]
+            d = last["w"].shape[-1] // 2
+            mean = linear({"w": last["w"][..., :d], "b": last["b"][..., :d]},
+                          feats)
+            logvar = linear({"w": last["w"][..., d:],
+                             "b": last["b"][..., d:]}, feats.detach())
+        else:
+            out = mlp_apply(head_params, inp)
+            if not c.probabilistic:
+                return out, None
+            mean, logvar = out.chunk(2, dim=-1)
+        logvar = params["max_logvar"] - F.softplus(params["max_logvar"] - logvar)
+        logvar = params["min_logvar"] + F.softplus(logvar - params["min_logvar"])
+        return mean, logvar
 
-    def predict(self, params: dict, norm: NormStats, member_fwd: MLP,
-                obs: Tensor, act: Tensor, z: Tensor) -> Tensor:
-        """Next-obs prediction through ONE member's forward head."""
-        mean, _ = self._head_out(member_fwd, params, norm, obs, act, z)
+    def predict(self, params: dict, norm: NormStats, fwd: MLP, obs: Tensor,
+                act: Tensor, z: Tensor, noise: Optional[Tensor] = None
+                ) -> Tensor:
+        """Next-obs prediction through the forward head ``fwd``: one
+        member's MLP, or the member-stacked ``params["fwd"]`` with a leading
+        member axis on obs/act/z. With ``noise`` (standard normals shaped
+        like obs) a probabilistic model samples from its predicted Gaussian;
+        otherwise it returns the mean."""
+        mean, logvar = self._head_out(fwd, params, norm, obs, act, z)
+        if logvar is not None and noise is not None:
+            mean = mean + torch.exp(0.5 * logvar) * noise
         return obs + (norm.dobs_mean + norm.dobs_std * mean)
 
     # ------------------------------------------------------------- loss --
+    @staticmethod
+    def _nll(mean: Tensor, logvar: Optional[Tensor], target: Tensor) -> Tensor:
+        if logvar is None:
+            return ((mean - target) ** 2).sum(-1)
+        return ((mean - target) ** 2 * torch.exp(-logvar) + logvar).sum(-1)
+
+    def _head_nll(self, mean: Tensor, logvar: Optional[Tensor],
+                  target: Tensor) -> Tensor:
+        """One head's per-step loss: the NLL (squared error for a
+        deterministic head), or with ``mean_anchor`` > 0 on a probabilistic
+        head the anchored MSE plus the NLL around the frozen means."""
+        c = self.cfg
+        if not (c.probabilistic and c.mean_anchor > 0.0):
+            return self._nll(mean, logvar, target)
+        return (c.mean_anchor * ((mean - target) ** 2).sum(-1)
+                + self._nll(mean.detach(), logvar, target))
+
     def loss(self, params: dict, norm: NormStats, batch: SegmentBatch
              ) -> Tuple[Tensor, dict]:
         """Joint CaDM loss over member-indexed segment batches.
 
-        ``batch`` leaves have shape (n_members, B, ...). The context z is
-        computed once per segment and shared by all M future steps; the
-        backward head predicts the previous observation through the negated
-        normalized delta. Each member's steps are weighted by
-        valid/(Σvalid + 1e-8); members are averaged.
+        ``batch`` leaves have shape (n_members, B, ...); all members run at
+        once. The context z is computed once per segment and shared by all
+        M future steps; the backward head predicts the previous observation
+        through the negated normalized delta. Each member's steps are
+        weighted by valid/(Σvalid + 1e-8); members are averaged. A
+        probabilistic model adds logvar_penalty·(Σmax_logvar − Σmin_logvar)
+        to the returned loss (not to the ``model_loss`` metric).
         """
         c = self.cfg
-        losses, mses = [], []
-        for m in range(c.n_members):
-            mb = tree_map(lambda x: x[m], batch)
-            z = self.get_context(params, norm, mb.hist_dobs, mb.hist_act,
-                                 mb.hist_valid)                  # (B, ctx)
-            z_m = z[:, None, :].expand(*mb.obs.shape[:-1], z.shape[-1])
-            target = (mb.next_obs - mb.obs - norm.dobs_mean) / norm.dobs_std
-            f_mean, _ = self._head_out(member(params["fwd"], m), params, norm,
-                                       mb.obs, mb.act, z_m)
-            per_step = ((f_mean - target) ** 2).sum(-1)          # (B, M)
-            if "bwd" in params:
-                b_mean, _ = self._head_out(member(params["bwd"], m), params,
-                                           norm, mb.next_obs, mb.act, z_m)
-                per_step = per_step + c.beta_backward * (
-                    (b_mean + target) ** 2).sum(-1)
-            w = mb.valid / (mb.valid.sum() + 1e-8)
-            # forward-mean error, the planner-relevant model quality
-            mses.append((((f_mean - target) ** 2).mean(-1) * w).sum())
-            losses.append((per_step * w).sum())
-        total = torch.stack(losses).mean()
-        return total, {"model_loss": total,
-                       "fwd_mean_mse": torch.stack(mses).mean()}
+        z = self.get_context(params, norm, batch.hist_dobs, batch.hist_act,
+                             batch.hist_valid)                  # (n, B, ctx)
+        z_m = z[..., None, :].expand(*batch.obs.shape[:-1], z.shape[-1])
+        target = (batch.next_obs - batch.obs - norm.dobs_mean) / norm.dobs_std
+        f_mean, f_logvar = self._head_out(params["fwd"], params, norm,
+                                          batch.obs, batch.act, z_m)
+        per_step = self._head_nll(f_mean, f_logvar, target)     # (n, B, M)
+        if "bwd" in params:
+            b_mean, b_logvar = self._head_out(params["bwd"], params, norm,
+                                              batch.next_obs, batch.act, z_m)
+            per_step = per_step + c.beta_backward * self._head_nll(
+                b_mean, b_logvar, -target)
+        w = batch.valid / (batch.valid.sum((-2, -1), keepdim=True) + 1e-8)
+        # forward-mean error, the planner-relevant model quality
+        mses = (((f_mean - target) ** 2).mean(-1) * w).sum((-2, -1))
+        losses = (per_step * w).sum((-2, -1))
+        total = losses.mean()
+        metrics = {"model_loss": total, "fwd_mean_mse": mses.mean()}
+        if c.probabilistic:
+            bound_pen = c.logvar_penalty * (params["max_logvar"].sum()
+                                            - params["min_logvar"].sum())
+            total = total + bound_pen
+            metrics["logvar_bound_penalty"] = bound_pen
+        return total, metrics
 
     # ----------------------------------------------------------- update --
     def update(self, state: DynamicsState, batch: SegmentBatch

@@ -3,8 +3,9 @@
 Parameters are plain lists of ``{"w": (in, out), "b": (out,)}`` tensors in
 the reference's layout (weights are (in, out), not ``nn.Linear``'s
 (out, in)), so JAX parameters load without transposes. Ensemble members are
-a leading axis, ``{"w": (n, in, out), "b": (n, out)}``; ``member`` slices
-one out for ``mlp_apply``.
+a leading axis, ``{"w": (n, in, out), "b": (n, out)}``: ``mlp_apply`` runs
+all members as one batched product over that axis, and ``member`` slices
+one out.
 """
 from __future__ import annotations
 
@@ -43,20 +44,30 @@ def mlp_init(
     return params
 
 
-def mlp_apply(params: MLP, x: Tensor, activation=swish) -> Tensor:
-    """Apply the MLP; activation on all but the final layer.
-
-    Takes one member's weights (see ``member``) and x (..., in); each
-    layer is one ``addmm`` over the flattened rows.
-    """
-    n = len(params)
+def linear(layer: dict, x: Tensor) -> Tensor:
+    """``x @ w + b`` of one layer. One member's weights (in, out) take x
+    (..., in) as one ``addmm`` over the flattened rows; member-stacked
+    weights (n, in, out) take x (n, ..., in) as one ``baddbmm`` over the
+    member axis."""
+    w, b = layer["w"], layer["b"]
     lead = x.shape[:-1]
-    x = x.reshape(-1, x.shape[-1])
+    if w.ndim == 3:
+        y = torch.baddbmm(b[:, None], x.reshape(x.shape[0], -1, x.shape[-1]),
+                          w)
+    else:
+        y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*lead, -1)
+
+
+def mlp_apply(params: MLP, x: Tensor, activation=swish) -> Tensor:
+    """Apply the MLP (one member's or member-stacked weights, see
+    ``linear``); activation on all but the final layer."""
+    n = len(params)
     for i, layer in enumerate(params):
-        x = torch.addmm(layer["b"], x, layer["w"])
+        x = linear(layer, x)
         if i < n - 1:
             x = activation(x)
-    return x.reshape(*lead, -1)
+    return x
 
 
 def member(params: MLP, m: int) -> MLP:

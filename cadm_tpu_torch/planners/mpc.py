@@ -8,8 +8,22 @@ sequence; CEM refits a Gaussian on the top elites each iteration.
 
 All envs plan at once: candidates of every env form one (E·C)-row batch per
 model step, so a plan at 2048 envs × 200 candidates is 409,600 rows in one
-block (the reference's libtpu row-chunking is not needed on the card). This
-slice supports the single deterministic member (n_members = 1).
+block (the reference's libtpu row-chunking is not needed on the card).
+
+An ensemble (n_members > 1) propagates as ``PlannerConfig.ensemble_eval``
+says, its members run as one batched product over the member axis:
+
+- 'ts1' (default): the reference's block-granular PETS TS1. Each env's
+  candidates (padded to a member multiple) form n_members blocks, and every
+  model step draws a fresh permutation that says which member integrates
+  which block;
+- 'mean': every candidate under every member, scored by the member-mean
+  return (n_members × the rows);
+- 'ts1_exact': every candidate draws an i.i.d. member each step, taken from
+  all members' predictions (n_members × the rows).
+
+The reference's 'assign' mode (one member per candidate for the whole
+horizon, its known winner's curse) is not ported.
 """
 from __future__ import annotations
 
@@ -24,6 +38,7 @@ from cadm_tpu_torch.models.nets import member
 
 Tensor = torch.Tensor
 RewardFn = Callable[[Tensor, Tensor, Tensor], Tensor]
+ENSEMBLE_EVALS = ("ts1", "mean", "ts1_exact")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +51,10 @@ class PlannerConfig:
     cem_alpha: float = 0.1     # momentum on (mu, sigma) across CEM iterations
     init_sigma: float = 0.5
     warm_start: bool = False   # receding-horizon: shift last plan's mean
+    ensemble_eval: str = "ts1"  # 'ts1' | 'mean' | 'ts1_exact' (see above)
+    # sample from the probabilistic heads during rollouts (stochastic PETS
+    # trajectory sampling); False propagates each member's Gaussian mean
+    sample_predictions: bool = False
     # One-time return penalty for a candidate whose MODEL rollout blows up
     # (crosses the env's bad_transition limits or goes non-finite); its later
     # rewards are masked and its state clamped (see the reference for why a
@@ -53,8 +72,13 @@ class MPCPlanner:
         bad_transition_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
         obs_limit: float = float("inf"),
     ):
-        if model.cfg.n_members != 1:
-            raise NotImplementedError("the port plans with one member")
+        if config.ensemble_eval == "assign":
+            raise NotImplementedError(
+                "ensemble_eval='assign' is not ported (ported: "
+                f"{ENSEMBLE_EVALS})")
+        if config.ensemble_eval not in ENSEMBLE_EVALS:
+            raise ValueError(
+                f"unknown ensemble_eval {config.ensemble_eval!r}")
         self.cfg = config
         self.model = model
         self.reward_fn = reward_fn
@@ -88,25 +112,104 @@ class MPCPlanner:
         return next_obs, new_alive, blown_now
 
     # ------------------------------------------------------------ rollout --
+    def member_draws(self, gen: torch.Generator, e: int, c: int) -> Optional[Tensor]:
+        """The member draws of one ``_evaluate`` call of ``e`` envs and ``c``
+        candidates: 'ts1' block→member permutations (E, H, n_members), a
+        uniform permutation per env and step (argsort of uniforms, batched);
+        'ts1_exact' i.i.d. members (E, H, C); None otherwise."""
+        n, h = self.model.cfg.n_members, self.cfg.horizon
+        dev = gen.device
+        if n == 1 or self.cfg.ensemble_eval == "mean":
+            return None
+        if self.cfg.ensemble_eval == "ts1":
+            return torch.rand(e, h, n, generator=gen, device=dev).argsort(-1)
+        return torch.randint(0, n, (e, h, c), generator=gen, device=dev)
+
     def _evaluate(self, params: dict, norm: NormStats, obs0: Tensor,
-                  z: Tensor, actions: Tensor) -> Tensor:
-        """Return (E, C) of each env's candidate sequences (E, C, H, act)."""
+                  z: Tensor, actions: Tensor, gen: Optional[torch.Generator] = None,
+                  members: Optional[Tensor] = None,
+                  pred_noise: Optional[Tensor] = None) -> Tensor:
+        """Return (E, C) of each env's candidate sequences (E, C, H, act).
+
+        ``members`` replaces the member draws (see ``member_draws``);
+        ``pred_noise`` (H, *prediction shape) replaces the standard normals
+        of ``sample_predictions``. Both are drawn from ``gen`` otherwise.
+        """
         e, c, h, _ = actions.shape
-        fwd = member(params["fwd"], 0)
-        obs = obs0[:, None].expand(e, c, obs0.shape[-1]).reshape(e * c, -1)
-        zz = z[:, None].expand(e, c, z.shape[-1]).reshape(e * c, -1)
-        alive = torch.ones(e * c, device=obs.device)
-        total = torch.zeros(e * c, device=obs.device)
+        n, mode = self.model.cfg.n_members, self.cfg.ensemble_eval
+        if members is None and n > 1 and mode != "mean":
+            members = self.member_draws(gen, e, c)
+        fwd = params["fwd"] if n > 1 else member(params["fwd"], 0)
+
+        def predict(t, obs, act, zz):
+            noise = None
+            if self.cfg.sample_predictions:
+                noise = pred_noise[t] if pred_noise is not None else \
+                    torch.randn(obs.shape, generator=gen, device=obs.device)
+            return self.model.predict(params, norm, fwd, obs, act, zz, noise)
+
+        if n == 1 or mode == "mean":
+            # rows (n, E·C), or (E·C) for one member
+            lead = (e * c,) if n == 1 else (n, e * c)
+            obs = obs0[:, None].expand(e, c, obs0.shape[-1]).reshape(e * c, -1)
+            zz = z[:, None].expand(e, c, z.shape[-1]).reshape(e * c, -1)
+            obs, zz = obs.expand(*lead, -1), zz.expand(*lead, -1)
+
+            def step(t, obs):
+                a_t = actions[:, :, t].reshape(e * c, -1).expand(*lead, -1)
+                return a_t, predict(t, obs, a_t, zz)
+
+            return self._rollout(obs, step, h).reshape(-1, e, c).mean(0)
+
+        rows = torch.arange(e, device=obs0.device)[:, None]
+        if mode == "ts1":
+            # candidate blocks (E, n, cm): block order stays fixed, the
+            # block→member map moves every step
+            cm = -(-c // n)
+            acts = actions[:, torch.arange(cm * n, device=actions.device) % c]
+            acts = acts.reshape(e, n, cm, h, -1)
+            obs = obs0[:, None, None].expand(e, n, cm, obs0.shape[-1])
+            zz = z[None, :, None].expand(n, e, cm, z.shape[-1])
+
+            def step(t, obs):
+                perm = members[:, t]                        # block b → member
+                inv = perm.argsort(-1)                      # member m → block
+                a_t = acts[:, :, :, t]
+                pred = predict(t, obs[rows, inv].transpose(0, 1),
+                               a_t[rows, inv].transpose(0, 1), zz)
+                return a_t, pred.transpose(0, 1)[rows, perm]
+
+            total = self._rollout(obs, step, h)
+            return total.reshape(e, cm * n)[:, :c]
+
+        # ts1_exact: every member predicts every candidate; each candidate
+        # takes its drawn member's prediction
+        obs = obs0[:, None].expand(e, c, obs0.shape[-1])
+        zz = z[None, :, None].expand(n, e, c, z.shape[-1])
+
+        def step(t, obs):
+            a_t = actions[:, :, t]
+            preds = predict(t, obs.expand(n, e, c, -1),
+                            a_t.expand(n, e, c, -1), zz)
+            pick = members[:, t][None, ..., None].expand(1, e, c, obs.shape[-1])
+            return a_t, preds.gather(0, pick)[0]
+
+        return self._rollout(obs, step, h)
+
+    def _rollout(self, obs: Tensor, step, h: int) -> Tensor:
+        """Sum over ``h`` model steps of each row's guarded reward;
+        ``step(t, obs)`` → (action, predicted next obs) of the rows."""
+        alive = obs.new_ones(obs.shape[:-1])
+        total = obs.new_zeros(obs.shape[:-1])
         for t in range(h):
-            a_t = actions[:, :, t].reshape(e * c, -1)
-            next_obs = self.model.predict(params, norm, fwd, obs, a_t, zz)
+            a_t, next_obs = step(t, obs)
             next_obs, alive_next, blown = self._guard(obs, next_obs, alive)
             total += (
                 self.reward_fn(obs, a_t, next_obs) * alive_next
                 - self.cfg.blowup_penalty * blown
             )
             obs, alive = next_obs, alive_next
-        return total.reshape(e, c)
+        return total
 
     def _refit(self, actions: Tensor, returns: Tensor) -> Tuple[Tensor, Tensor]:
         """CEM refit: (mean, population std) of each env's top elites.
@@ -125,13 +228,16 @@ class MPCPlanner:
     # ---------------------------------------------------------------- act --
     def _plan(self, params: dict, norm: NormStats, obs: Tensor, z: Tensor,
               prev_mu: Tensor, gen: torch.Generator,
-              noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+              noise: Optional[Tensor] = None, members: Optional[Tensor] = None,
+              pred_noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
         """Plan for every env → (first actions (E, act), plan means (E, H, act)).
 
         The reference's per-env ``_plan_single`` over a leading env axis.
         ``noise`` replaces the sampled randomness (tests feed both packages
         the same numbers): CEM's truncated-normal ε, (cem_iters, E, C, H,
-        act); RS's uniform actions, (E, C, H, act).
+        act); RS's uniform actions, (E, C, H, act). ``members`` and
+        ``pred_noise`` replace ``_evaluate``'s draws, with a leading
+        cem_iters axis for CEM.
         """
         cfg = self.cfg
         e = obs.shape[0]
@@ -140,7 +246,8 @@ class MPCPlanner:
             actions = noise if noise is not None else (
                 2.0 * torch.rand(shape, generator=gen, device=obs.device) - 1.0
             )
-            returns = self._evaluate(params, norm, obs, z, actions)
+            returns = self._evaluate(params, norm, obs, z, actions, gen,
+                                     members, pred_noise)
             # NaN compares False under argmax: make it lose explicitly
             returns = torch.where(torch.isnan(returns), -math.inf, returns)
             best = torch.argmax(returns, dim=1)
@@ -161,7 +268,10 @@ class MPCPlanner:
                 torch.nn.init.trunc_normal_(eps, 0.0, 1.0, -2.0, 2.0,
                                             generator=gen)
             actions = torch.clamp(mu[:, None] + sigma[:, None] * eps, -1.0, 1.0)
-            returns = self._evaluate(params, norm, obs, z, actions)
+            returns = self._evaluate(
+                params, norm, obs, z, actions, gen,
+                None if members is None else members[i],
+                None if pred_noise is None else pred_noise[i])
             new_mu, new_sigma = self._refit(actions, returns)
             mu = cfg.cem_alpha * mu + (1 - cfg.cem_alpha) * new_mu
             sigma = cfg.cem_alpha * sigma + (1 - cfg.cem_alpha) * new_sigma
@@ -174,10 +284,12 @@ class MPCPlanner:
 
     def plan(self, state: DynamicsState, obs: Tensor, z: Tensor,
              gen: torch.Generator, prev_mu: Optional[Tensor] = None,
-             noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-        """Batched planning → (actions (E, act), plan means (E, H, act))."""
+             noise: Optional[Tensor] = None, members: Optional[Tensor] = None,
+             pred_noise: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        """Batched planning → (actions (E, act), plan means (E, H, act));
+        ``noise``, ``members`` and ``pred_noise`` as in ``_plan``."""
         if prev_mu is None:
             prev_mu = self.init_plan(obs.shape[0], obs.device)
         with torch.no_grad():
             return self._plan(state.params, state.norm, obs, z, prev_mu, gen,
-                              noise)
+                              noise, members, pred_noise)

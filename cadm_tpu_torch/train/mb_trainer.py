@@ -24,12 +24,31 @@ import torch
 
 from cadm_tpu_torch.core.types import batched_history, tree_map, tree_where
 from cadm_tpu_torch.envs.base import Env
-from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsState, NormStats
+from cadm_tpu_torch.models.dynamics import (
+    Dynamics,
+    DynamicsState,
+    NormStats,
+    SegmentBatch,
+)
 from cadm_tpu_torch.planners.mpc import MPCPlanner
 from cadm_tpu_torch.train.buffer import ReplayBuffer, masked_mean_std
 
 Tensor = torch.Tensor
 Indices = Tuple[Tensor, Tensor]
+
+
+def _symmetrize_stats(maps: Tensor, mean: Tensor, std: Tensor
+                      ) -> Tuple[Tensor, Tensor]:
+    """Normalization statistics of the group-augmented data: the uniform
+    mixture over group elements k of ``maps[k] @ x``. For signed-permutation
+    maps the mixture's per-dim moments are exact:
+    mean' = (1/G) Σ_k maps[k] @ mean, E[x²]' = (1/G) Σ_k maps[k]² @ (std² +
+    mean²) (elementwise square)."""
+    g = maps.shape[0]
+    mean_aug = torch.einsum("gij,j->i", maps, mean) / g
+    m2_aug = torch.einsum("gij,j->i", maps**2, std**2 + mean**2) / g
+    var = torch.clamp(m2_aug - mean_aug**2, min=1e-12)
+    return mean_aug, torch.sqrt(var)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +73,11 @@ class TrainerConfig:
     valid_batches: int = 4          # minibatches per valid-loss estimate
     # an epoch is min(one pass over the dataset, this many updates)
     epoch_updates_cap: int = 500
+    # symmetry-group augmentation of the TRAIN minibatches: each segment is
+    # mapped by a uniformly drawn element of env.symmetry_maps() (CrippleAnt:
+    # the 4-fold leg relabeling); valid batches and collect stay raw, and
+    # the norm statistics are those of the augmented distribution
+    symmetry_aug: bool = False
 
 
 def epoch_minibatches(n_train_anchors: int, capacity: int, n_envs: int,
@@ -103,6 +127,15 @@ class MBTrainer:
         self.cfg = config
         self._fit = {"fixed": self._fit_impl,
                      "epochs": self._fit_epochs_impl}[config.fit_protocol]
+        self._sym_maps = None
+        if config.symmetry_aug:
+            maps = env.symmetry_maps()
+            if maps is None:
+                raise ValueError(f"symmetry_aug=True but {type(env).__name__} "
+                                 "exposes no symmetry_maps()")
+            self._sym_maps = {k: torch.as_tensor(maps[k], dtype=torch.float32,
+                                                 device=env.device)
+                              for k in ("obs", "act")}
 
     # ------------------------------------------------------------- init --
     def init(self, gen: torch.Generator):
@@ -184,8 +217,32 @@ class MBTrainer:
         om, os_ = masked_mean_std(obs, mask)
         am, as_ = masked_mean_std(act, mask)
         dm, ds = masked_mean_std(dobs, mask)
+        if self._sym_maps is not None:
+            om, os_ = _symmetrize_stats(self._sym_maps["obs"], om, os_)
+            am, as_ = _symmetrize_stats(self._sym_maps["act"], am, as_)
+            dm, ds = _symmetrize_stats(self._sym_maps["obs"], dm, ds)
         return dataclasses.replace(
             dyn_state, norm=NormStats(om, os_, am, as_, dm, ds))
+
+    def _augment(self, batch: SegmentBatch, group_idx: Tensor) -> SegmentBatch:
+        """Map each segment by its group element ``group_idx`` (n_members,
+        B): history and future alike, obs-like leaves by the obs map and
+        action leaves by the action map."""
+        m_o = self._sym_maps["obs"][group_idx]        # (..., d, d)
+        m_a = self._sym_maps["act"][group_idx]        # (..., a, a)
+
+        def app(x, m):
+            return torch.einsum("...td,...od->...to", x, m)
+
+        return dataclasses.replace(
+            batch,
+            hist_obs=app(batch.hist_obs, m_o),
+            hist_dobs=app(batch.hist_dobs, m_o),
+            hist_act=app(batch.hist_act, m_a),
+            obs=app(batch.obs, m_o),
+            act=app(batch.act, m_a),
+            next_obs=app(batch.next_obs, m_o),
+        )
 
     def _draw(self, buffer: ReplayBuffer, gen: torch.Generator,
               split: str) -> Indices:
@@ -215,7 +272,12 @@ class MBTrainer:
 
     def _train_step(self, buffer, gen, dyn_state):
         idx = self._draw(buffer, gen, "train")
-        dyn_state, m = self.model.update(dyn_state, self._sample(buffer, idx))
+        batch = self._sample(buffer, idx)
+        if self._sym_maps is not None:
+            g = self._sym_maps["obs"].shape[0]
+            batch = self._augment(batch, torch.randint(
+                0, g, idx[0].shape, generator=gen, device=idx[0].device))
+        dyn_state, m = self.model.update(dyn_state, batch)
         return dyn_state, m["model_loss"]
 
     @torch.no_grad()

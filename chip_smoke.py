@@ -12,9 +12,11 @@ Phases, one or more lines each, any failure raising (exit code != 0):
 2. K1 (PGS contact solve) against its plain PyTorch version on 2048 random
    SPD systems at nc 16 and 29, cold (15 sweeps) and warm-started (6), on
    16 × 2048 of them (a launch whose blocks share their shared-memory pool
-   in rounds), and on the main path's own inputs: the (A, b, v*, μ, λ0) of
-   one cold and one warm substep of 2048 cheetahs after random-action
-   control steps, with the histogram of active contacts per env;
+   in rounds), and on each family's own main-path inputs: the (A, b, v*, μ,
+   λ0) of one cold and one warm substep after 10 random-action control
+   steps at its preset's batch (2048 cheetahs, 512 hoppers, 1024 ants, 512
+   humanoids), with the histogram of active contacts per env; K2's device
+   time on the same step's smooth-stage inputs;
 3. K2 (fused smooth dynamics) against its plain version (run in float64)
    on all four rigid Systems at 2048 random states, every field of its row
    (body rotations and world inertias included), and a profiler count that
@@ -22,19 +24,26 @@ Phases, one or more lines each, any failure raising (exit code != 0):
 4. K3 (FK-velocity walk) against its plain version (run in float64) on all
    four rigid Systems at 2048 random states;
 5. a toy-width slice (plan → env step, 3 control steps) on the card against
-   the same slice on the CPU (plain versions), same weights/states/noise;
-6. a toy-width fit, 20 model updates on the card against the same 20 on the
-   CPU: same starting weights, same segment batches;
+   the same slice on the CPU (plain versions), same weights/states/noise,
+   for ``halfcheetah_cadm_cem`` and for ``cripple_ant_cadm_ensemble_cem``
+   (5 probabilistic members, TS1, the same block permutations on both);
+6. a toy-width fit of both presets, 20 model updates on the card against the
+   same 20 on the CPU: same starting weights, same segment batches;
 7. the training path at full width through the CLI
-   (``cadm_tpu_torch.cli.run.main`` with the ``halfcheetah_cadm_cem`` preset:
-   2048 envs, a 20000-column replay ring, batch 256, 4×200 heads, CEM
-   200×30×5, epoch fit with early stop), cut in depth only: 2 iterations
-   (random collect, then planned) of 20 control steps, 10-step episodes.
-   Checks the log, the fit metrics, the episode counts and K1/K2 launches =
-   5 × every control step taken;
-8. the acting path at full width (``trainer.evaluate``, 2048 envs) for
-   ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2, with both
-   kernels' launch counts checked against steps × frame_skip.
+   (``cadm_tpu_torch.cli.run.main``), cut in depth only: 2 iterations
+   (random collect, then planned) of 20 control steps, 10-step episodes, for
+   ``halfcheetah_cadm_cem`` (2048 envs, 4×200 heads, a 20000-column ring,
+   batch 256, CEM 200×30×5) and ``cripple_ant_cadm_ensemble_cem`` (1024
+   envs, 5 members, the same ring, batch and CEM, TS1). Checks the log, the
+   fit metrics (``logvar_bound_penalty`` of the ensemble included), the
+   episode counts and K1/K2 launches = frame_skip × every control step;
+8. the acting path at full width (``trainer.evaluate``) for
+   ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2: cheetah at
+   2048 envs, slim_humanoid and hopper at 512, with both kernels' launch
+   counts checked against steps × frame_skip.
+
+Each path of phases 7 and 8 sets the launch counts to 0 before it runs and
+reads them after.
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -47,6 +56,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -87,8 +97,16 @@ TRAIN_KEYS = [
     "eval/return_mode1", "eval/return_mode1_std",
     "eval/return_mode2", "eval/return_mode2_std",
 ]
-TRAIN_ARGS = ["--preset", "halfcheetah_cadm_cem", "--n-itr", "2",
-              "--steps-per-itr", "20", "--env-horizon", "10"]
+TRAIN_DEPTH = ["--n-itr", "2", "--steps-per-itr", "20", "--env-horizon", "10"]
+# each System's main path and the batch its preset runs: K1's and K2's
+# inputs are captured there (phase 2)
+MAIN_PATH_SYSTEMS = (("half_cheetah", 2048), ("hopper", 512), ("ant", 1024),
+                     ("slim_humanoid", 512))
+# the training paths (phase 7) and the acting paths with their env counts
+# (phase 8); phases 5 and 6 run the training presets at toy width
+TRAIN_PRESETS = ("halfcheetah_cadm_cem", "cripple_ant_cadm_ensemble_cem")
+ACT_PRESETS = (("halfcheetah_cadm_cem", 2048), ("slim_humanoid_cadm_cem", 512),
+               ("hopper_cadm_cem", 512))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 and FP64 FLOP/s
 # outside the tensor cores
 HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
@@ -128,8 +146,13 @@ def device_ops(fn, reps: int = 1):
 
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time in ms of one call of ``fn``: unlike ``cuda_ms`` it
-    leaves out the gaps while the host launches."""
-    return sum(t for _, _, t in device_ops(fn, reps)) / reps / 1e3
+    leaves out the gaps while the host launches. A profile that saw no
+    device time (the profiler drops a cycle now and then) is taken again."""
+    for _ in range(3):
+        ms = sum(t for _, _, t in device_ops(fn, reps)) / reps / 1e3
+        if ms > 0:
+            return ms
+    raise AssertionError("torch.profiler saw no device time in 3 profiles")
 
 
 def card_line() -> str:
@@ -255,23 +278,25 @@ def check_pgs(pgs, dev, gen):
     return results
 
 
-def capture_main_path_pgs(envs, rdyn, dev, steps=10):
-    """K1's inputs on the main path: 2048 cheetahs (the preset's env and
-    batch) take ``steps`` random-action control steps so that they reach the
-    ground; the next step's first two solves (cold, then warm) are kept."""
-    env = envs.make("half_cheetah", device=dev)
+def capture_main_path(envs, rdyn, fk_kernel, dev, name="half_cheetah",
+                      n=E, steps=10):
+    """K1's and K2's inputs on a family's main path: ``n`` envs (its preset's
+    batch) take ``steps`` random-action control steps so that they reach
+    the ground; of the next step, the first two solves (cold, then warm) and
+    the first smooth-stage call are kept."""
+    env = envs.make(name, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    states = env.reset(gen, E)
+    states = env.reset(gen, n)
     low, high = env.action_limits()
 
     def act():
-        u = torch.rand(E, env.act_dim, generator=gen, device=dev)
+        u = torch.rand(n, env.act_dim, generator=gen, device=dev)
         return low + (high - low) * u
 
     for _ in range(steps):
         states = env.step(states, act(), gen)[0]
-    captured = []
-    solve = rdyn.pgs_solve
+    captured, smooth = [], []
+    solve, full_dyn = rdyn.pgs_solve, fk_kernel.full_dyn
 
     def keep(A, b, vstar, actmu, lam0, *, iters):
         if len(captured) < 2:
@@ -279,32 +304,52 @@ def capture_main_path_pgs(envs, rdyn, dev, steps=10):
                             + (iters,))
         return solve(A, b, vstar, actmu, lam0, iters=iters)
 
-    rdyn.pgs_solve = keep
+    def keep_smooth(sys_, *args):
+        if not smooth:
+            smooth.append((sys_,) + tuple(x.clone() for x in args))
+        return full_dyn(sys_, *args)
+
+    rdyn.pgs_solve, fk_kernel.full_dyn = keep, keep_smooth
     try:
         env.step(states, act(), gen)
     finally:
-        rdyn.pgs_solve = solve
+        rdyn.pgs_solve, fk_kernel.full_dyn = solve, full_dyn
     torch.cuda.synchronize()
-    return dict(zip(("cold", "warm"), captured))
+    return dict(zip(("cold", "warm"), captured)), smooth[0]
 
 
-def check_pgs_main_path(pgs, captured):
-    """K1 on the main path's own inputs, with the histogram of active
+def check_pgs_main_path(pgs, captured, system="half_cheetah"):
+    """K1 on a main path's own inputs, with the histogram of active
     contacts per env."""
     results = []
     for tag, (A, b, vstar, actmu, lam0, iters) in captured.items():
         na = (actmu > 0).sum(1)
         hist = torch.bincount(na, minlength=vstar.shape[1] + 1).tolist()
-        print(f"K1 main path {tag}: active contacts per env (count of envs "
-              f"with 0, 1, ... {vstar.shape[1]}): {hist}; mean "
+        print(f"K1 main path {system} {tag}: active contacts per env (count "
+              f"of envs with 0, 1, ... {vstar.shape[1]}): {hist}; mean "
               f"{na.float().mean().item():.3f}")
-        results.append(dict(pgs_case(pgs, f"main-path {tag}", A, b, vstar,
-                                     actmu, lam0, iters), tag=tag, hist=hist))
+        results.append(dict(pgs_case(pgs, f"main-path {system} {tag}", A, b,
+                                     vstar, actmu, lam0, iters),
+                            tag=tag, hist=hist, system=system))
     bad = [r for r in results if not (r["err"] <= LAM_ATOL and r["zero"])]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version on the "
                              f"main path's inputs: {bad}")
     return results
+
+
+def time_full_dyn_main_path(fk_kernel, smooth, system):
+    """K2's device time on a main path's own smooth-stage inputs, and its
+    bound (as in phase 3, at this batch)."""
+    sys_, *args = smooth
+    e = args[0].shape[0]
+    ms = device_ms(lambda: fk_kernel.launch(sys_, *args))
+    n_in = sys_.nq + sys_.nv + 2 * sys_.nu + 2
+    bound_ms, bound_by = bound(4 * e * (n_in + fk_kernel.row_layout(sys_)[1]),
+                               e * full_dyn_ops(sys_), FP64_FLOPS)
+    print(f"K2 main path {system} E={e}: kernel {ms:.4f} ms (device), bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(ms=ms, bound_ms=bound_ms)
 
 
 # ------------------------------------------------------------- phase 3: K2 --
@@ -432,9 +477,10 @@ def check_fk_vel(fk_kernel, load_system, ASSETS, dev):
 
 
 # -------------------------------------------------- phase 5: toy slice ----
-def run_toy_slice(cfg, device, dyn_cpu, start_cpu, noise, steps):
+def run_toy_slice(cfg, device, dyn_cpu, start_cpu, noise, members, steps):
     """``steps`` control steps of plan → env step on ``device`` from CPU
-    weights/states; returns the actions and observations of each step."""
+    weights/states, the planner's ε and member draws given; returns the
+    actions and observations of each step."""
     from cadm_tpu_torch.core.types import batched_history, tree_map
 
     env, model, planner, _ = cfg.build(device)
@@ -445,8 +491,9 @@ def run_toy_slice(cfg, device, dyn_cpu, start_cpu, noise, steps):
     out = []
     for t in range(steps):
         z = model.context_from_history(dyn.params, dyn.norm, hists)
-        actions, _ = planner.plan(dyn, states.obs, z, gen,
-                                  noise=noise[t].to(device))
+        actions, _ = planner.plan(
+            dyn, states.obs, z, gen, noise=noise[t].to(device),
+            members=None if members is None else members[t].to(device))
         prev = states.obs
         states, obs, _, _ = env.step(states, actions, gen)
         hists = model.push_history(dyn.params, dyn.norm, hists, prev,
@@ -459,9 +506,11 @@ TOY = dict(hidden=(32, 32), n_candidates=16, plan_horizon=5, cem_iters=2,
            cem_elites=4, n_envs=4, eval_envs=4)
 
 
-def check_toy_slice(PRESETS):
-    cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], **TOY)
-    env, model, _, _ = cfg.build("cpu")
+def check_toy_slice(PRESETS, preset="halfcheetah_cadm_cem"):
+    """The toy slice on the card against the CPU: same weights, states, CEM
+    ε and (for an ensemble) the same TS1 block permutations."""
+    cfg = dataclasses.replace(PRESETS[preset], **TOY)
+    env, model, planner, _ = cfg.build("cpu")
     gen = torch.Generator().manual_seed(SEED)
     dyn = model.init_state(gen)
     start = env.reset(gen, cfg.eval_envs)
@@ -469,18 +518,27 @@ def check_toy_slice(PRESETS):
     noise = torch.empty(steps, cfg.cem_iters, cfg.eval_envs, cfg.n_candidates,
                         cfg.plan_horizon, env.act_dim)
     torch.nn.init.trunc_normal_(noise, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    cpu = run_toy_slice(cfg, "cpu", dyn, start, noise, steps)
-    gpu = run_toy_slice(cfg, "cuda", dyn, start, noise, steps)
+    members = None
+    if model.cfg.n_members > 1:
+        members = torch.stack([torch.stack([
+            planner.member_draws(gen, cfg.eval_envs, cfg.n_candidates)
+            for _ in range(cfg.cem_iters)]) for _ in range(steps)])
+    cpu = run_toy_slice(cfg, "cpu", dyn, start, noise, members, steps)
+    gpu = run_toy_slice(cfg, "cuda", dyn, start, noise, members, steps)
     err_a = max((a - b).abs().max().item() for (a, _), (b, _) in zip(cpu, gpu))
     err_o = max((a - b).abs().max().item() for (_, a), (_, b) in zip(cpu, gpu))
-    print(f"toy slice card vs cpu, {steps} control steps: max_abs_err actions "
-          f"{err_a:.3e}, obs {err_o:.3e} (atol {SLICE_ATOL})")
+    print(f"toy slice {preset} ({cfg.env}, {model.cfg.n_members} member(s), "
+          f"{cfg.ensemble_eval}) card vs cpu, {steps} control steps: "
+          f"max_abs_err actions {err_a:.3e}, obs {err_o:.3e} (atol "
+          f"{SLICE_ATOL})")
     if not (err_a <= SLICE_ATOL and err_o <= SLICE_ATOL):
-        raise AssertionError("toy slice on the card disagrees with the CPU")
+        raise AssertionError(f"toy slice {preset} on the card disagrees "
+                             f"with the CPU")
 
 
 # ---------------------------------------------------- phase 6: toy fit ----
-def check_toy_fit(PRESETS, devices=("cpu", "cuda")):
+def check_toy_fit(PRESETS, preset="halfcheetah_cadm_cem",
+                  devices=("cpu", "cuda")):
     """20 updates on the card against the same 20 on the CPU.
 
     A random collect on the CPU fills a toy ring; 20 train minibatches'
@@ -490,9 +548,8 @@ def check_toy_fit(PRESETS, devices=("cpu", "cuda")):
     """
     from cadm_tpu_torch.core.types import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], **TOY,
-                              batch_size=16, buffer_capacity=64,
-                              steps_per_itr=40)
+    cfg = dataclasses.replace(PRESETS[preset], **TOY, batch_size=16,
+                              buffer_capacity=64, steps_per_itr=40)
     _, _, _, trainer = cfg.build("cpu")
     gen = torch.Generator().manual_seed(SEED)
     states, hists, buf, dyn = trainer.init(gen)
@@ -510,16 +567,20 @@ def check_toy_fit(PRESETS, devices=("cpu", "cuda")):
         for i in idx:
             st, m = tr.model.update(st, tr._sample(ring, to(i)))
             losses.append(m["model_loss"].item())
+            if not all(math.isfinite(v.item()) for v in m.values()):
+                raise AssertionError(f"toy fit {preset}: metrics {m}")
         runs.append((tree_leaves(st.params), np.asarray(losses)))
     (p_cpu, l_cpu), (p_gpu, l_gpu) = runs
     err_p = max((a - b.cpu()).abs().max().item() for a, b in zip(p_cpu, p_gpu))
     err_l = float(np.max(np.abs(l_cpu - l_gpu) / np.abs(l_cpu)))
-    print(f"toy fit card vs cpu, {FIT_STEPS} updates (heads (32, 32), batch "
-          f"16): max_abs_err params {err_p:.3e} (atol {FIT_ATOL}), losses "
-          f"rel {err_l:.3e} (rtol {FIT_LOSS_RTOL}); loss {l_cpu[0]:.4f} → "
+    print(f"toy fit {preset} card vs cpu, {FIT_STEPS} updates (heads "
+          f"{cfg.hidden}, batch 16, {trainer.model.cfg.n_members} member(s)): "
+          f"max_abs_err params {err_p:.3e} (atol {FIT_ATOL}), losses rel "
+          f"{err_l:.3e} (rtol {FIT_LOSS_RTOL}); loss {l_cpu[0]:.4f} → "
           f"{l_cpu[-1]:.4f}")
     if not (err_p <= FIT_ATOL and err_l <= FIT_LOSS_RTOL):
-        raise AssertionError("toy fit on the card disagrees with the CPU")
+        raise AssertionError(f"toy fit {preset} on the card disagrees with "
+                             f"the CPU")
 
 
 # ------------------------------------------- phase 7: full-width training --
@@ -548,18 +609,44 @@ def timed(cls, names, log):
             setattr(cls, n, fn)
 
 
-def run_training(pgs, fk_kernel):
-    """The training path at full width through the CLI, cut in depth."""
+@contextlib.contextmanager
+def last_output(cls, name, keep):
+    """Keep the latest output of ``cls.name`` in ``keep[0]`` (no
+    synchronize: the calls are not timed)."""
+    saved = getattr(cls, name)
+
+    def inner(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        keep[:] = [out]
+        return out
+
+    setattr(cls, name, inner)
+    try:
+        yield
+    finally:
+        setattr(cls, name, saved)
+
+
+def run_training(pgs, fk_kernel, preset="halfcheetah_cadm_cem"):
+    """The training path at full width through the CLI, cut in depth:
+    returns the launches of each kernel in the run."""
     from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.cli.presets import PRESETS
+    from cadm_tpu_torch.models.dynamics import Dynamics
     from cadm_tpu_torch.train.mb_trainer import MBTrainer
 
-    log = []
+    cfg = PRESETS[preset]
+    log, last_update = [], []
+    gc.collect()  # an earlier path's trainer and ring, held by a cycle
+    held = torch.cuda.memory_allocated()
     with tempfile.TemporaryDirectory() as tmp, \
-            timed(MBTrainer, ("_collect", "_fit_epochs_impl", "evaluate"), log):
+            timed(MBTrainer, ("_collect", "_fit_epochs_impl", "evaluate"), log), \
+            last_output(Dynamics, "update", last_update):
         torch.cuda.reset_peak_memory_stats()
         pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
         t0 = time.perf_counter()
-        history = run.main(TRAIN_ARGS + ["--log-dir", tmp, "--exp-name", "t"])
+        history = run.main(["--preset", preset, *TRAIN_DEPTH, "--log-dir", tmp,
+                            "--exp-name", "t"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = (pgs.launches, fk_kernel.launches, fk_kernel.fk_vel_launches)
@@ -567,73 +654,87 @@ def run_training(pgs, fk_kernel):
         with open(os.path.join(tmp, "t", "progress.csv")) as f:
             rows = list(csv.DictReader(f))
 
-    n_envs, steps, horizon = 2048, 20, 10
+    n_envs, steps, horizon = cfg.n_envs, 20, 10
     collects = [(s, a[6]) for n, s, a, _ in log if n == "_collect"]
+    frame_skip = log[0][2][0].env.frame_skip   # args[0] is the trainer
     fits = [(s, o[0].updates - a[3].updates) for n, s, a, o in log
             if n == "_fit_epochs_impl"]
     evals = [s for n, s, _, _ in log if n == "evaluate"]
     control_steps = steps * len(collects) + horizon * len(evals)
+    tag = f"train {preset}"
     for itr, ((c_s, random), (f_s, updates)) in enumerate(zip(collects, fits)):
         kind = (f"random collect {n_envs * steps / c_s:.1f} env steps/s"
                 if random else f"planned collect {1e3 * c_s / steps:.1f} ms "
                 f"per control step")
-        print(f"train itr {itr}: {kind} ({c_s:.2f} s); fit {updates} updates "
+        print(f"{tag} itr {itr}: {kind} ({c_s:.2f} s); fit {updates} updates "
               f"in {f_s:.2f} s = {updates / f_s:.1f} updates/s")
-    print(f"train: {len(evals)} evals of {horizon} control steps, "
+    print(f"{tag}: {len(evals)} evals of {horizon} control steps, "
           f"{1e3 * sum(evals) / (horizon * len(evals)):.1f} ms per control "
           f"step; wall {wall:.1f} s; peak device memory {peak / 2**30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated, 20000-column ring)")
+          f"(torch.cuda.max_memory_allocated, {cfg.buffer_capacity}-column "
+          f"ring, {n_envs} envs; {held / 2**30:.2f} GiB held before the run)")
 
     if len(rows) != 2 or list(rows[0]) != TRAIN_KEYS:
-        raise AssertionError(f"progress.csv: {len(rows)} rows, keys "
+        raise AssertionError(f"{tag} progress.csv: {len(rows)} rows, keys "
                              f"{list(rows[0]) if rows else None}")
+    metrics = {k: v.item() for k, v in last_update[0][1].items()}
+    print(f"{tag}: the last update's metrics {metrics}")
+    if not all(math.isfinite(v) for v in metrics.values()) or (
+            cfg.ensemble > 1 and "logvar_bound_penalty" not in metrics):
+        raise AssertionError(f"{tag}: update metrics {metrics}")
     for row in rows:
         bad = [k for k in TRAIN_KEYS if k.startswith("fit/")
                and not math.isfinite(float(row[k]))]
         if bad:
-            raise AssertionError(f"itr {row['itr']}: fit metrics not finite "
-                                 f"{bad}")
+            raise AssertionError(f"{tag} itr {row['itr']}: fit metrics not "
+                                 f"finite {bad}")
         if not 1 <= float(row["fit/epochs_run"]) <= 8:
-            raise AssertionError(f"itr {row['itr']}: epochs_run "
+            raise AssertionError(f"{tag} itr {row['itr']}: epochs_run "
                                  f"{row['fit/epochs_run']}")
         episodes = float(row["collect/episodes"])
-        print(f"train itr {row['itr']}: episodes {episodes:.0f} "
-              f"({episodes - 2 * n_envs:.0f} ended early by `unstable`), "
-              f"epochs_run {row['fit/epochs_run']}, valid loss "
+        print(f"{tag} itr {row['itr']}: episodes {episodes:.0f} "
+              f"({episodes - 2 * n_envs:.0f} ended early), epochs_run "
+              f"{row['fit/epochs_run']}, valid loss "
               f"{float(row['fit/valid_loss_before']):.4f} → "
               f"{float(row['fit/valid_loss_after']):.4f}, eval returns "
               f"{float(row['eval/return_mode0']):.3f} / "
               f"{float(row['eval/return_mode1']):.3f} / "
               f"{float(row['eval/return_mode2']):.3f}")
         if episodes < 2 * n_envs:
-            raise AssertionError(f"itr {row['itr']}: {episodes} episodes")
+            raise AssertionError(f"{tag} itr {row['itr']}: {episodes} "
+                                 f"episodes")
     first = rows[0]
     if not float(first["fit/valid_loss_after"]) < float(
             first["fit/valid_loss_before"]):
-        raise AssertionError("itr 0: the fit did not lower the valid loss")
+        raise AssertionError(f"{tag} itr 0: the fit did not lower the valid "
+                             f"loss")
     if [len(collects), len(fits), len(evals)] != [2, 2, 6] or \
             [r for _, r in collects] != [True, False] or len(history) != 2:
-        raise AssertionError(f"unexpected calls: {len(collects)} collects, "
-                             f"{len(fits)} fits, {len(evals)} evals")
-    expected = 5 * control_steps
-    print(f"train launches: pgs={launched[0]} full_dyn={launched[1]} "
-          f"fk_vel={launched[2]} (expected {expected} = 5 × {control_steps} "
-          f"control steps for pgs and full_dyn)")
+        raise AssertionError(f"{tag}: unexpected calls: {len(collects)} "
+                             f"collects, {len(fits)} fits, {len(evals)} evals")
+    expected = frame_skip * control_steps
+    print(f"{tag} launches: pgs={launched[0]} full_dyn={launched[1]} "
+          f"fk_vel={launched[2]} (expected {expected} = {frame_skip} × "
+          f"{control_steps} control steps for pgs and full_dyn)")
     if launched[:2] != (expected, expected):
-        raise AssertionError(f"training launches {launched[:2]} != {expected}")
+        raise AssertionError(f"{tag} launches {launched[:2]} != {expected}")
     return launched
 
 
 # ------------------------------------------- phase 8: full-width acting ----
-def run_full_slice(PRESETS, pgs, fk_kernel):
-    cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], eval_envs=E,
+def run_full_slice(PRESETS, pgs, fk_kernel, preset="halfcheetah_cadm_cem",
+                   n_envs=E):
+    """``trainer.evaluate`` at ``n_envs`` for SLICE_HORIZON control steps in
+    each eval mode; returns the ms per control step of each mode and the
+    launches of K1 and K2."""
+    cfg = dataclasses.replace(PRESETS[preset], eval_envs=n_envs,
                               env_horizon=SLICE_HORIZON)
     env, model, _, trainer = cfg.build("cuda")
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     dyn_state = model.init_state(gen)
     torch.cuda.synchronize()
     per_mode = env.horizon * env.frame_skip
-    pgs.launches = fk_kernel.launches = 0
+    pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
     step_ms = []
     for mode in cfg.eval_modes:
         before = (pgs.launches, fk_kernel.launches)
@@ -644,23 +745,27 @@ def run_full_slice(PRESETS, pgs, fk_kernel):
         launched = (pgs.launches - before[0], fk_kernel.launches - before[1])
         ms = 1e3 * dt / env.horizon
         step_ms.append(ms)
-        print(f"slice mode {mode}: {E} envs x {env.horizon} control steps, "
-              f"{ms:.1f} ms/control step, return mean "
+        print(f"slice {preset} mode {mode}: {n_envs} envs x {env.horizon} "
+              f"control steps, {ms:.1f} ms/control step, return mean "
               f"{returns.mean().item():.3f} std {returns.std().item():.3f}, "
               f"launches pgs={launched[0]} full_dyn={launched[1]} "
-              f"(expected {per_mode} each)")
-        if returns.shape != (E,) or not torch.isfinite(returns).all():
-            raise AssertionError(f"mode {mode}: returns not finite/shape "
-                                 f"{tuple(returns.shape)}")
+              f"(expected {per_mode} each = {env.frame_skip} × "
+              f"{env.horizon})")
+        if returns.shape != (n_envs,) or not torch.isfinite(returns).all():
+            raise AssertionError(f"{preset} mode {mode}: returns not "
+                                 f"finite/shape {tuple(returns.shape)}")
         if launched != (per_mode, per_mode):
-            raise AssertionError(f"mode {mode}: launches {launched} != "
-                                 f"{per_mode} per kernel")
-    return step_ms
+            raise AssertionError(f"{preset} mode {mode}: launches {launched} "
+                                 f"!= {per_mode} per kernel")
+    return step_ms, (pgs.launches, fk_kernel.launches,
+                     fk_kernel.fk_vel_launches)
 
 
-def kernel_entry(name, source, replaces, launches, err, main, **extra):
+def kernel_entry(name, source, replaces, launches, by_path, err, main,
+                 **extra):
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": err,
             "ms": main["ms"], "call_ms": main["call_ms"],
             "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -692,33 +797,54 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = check_pgs(pgs, dev, gen)
-    k1_path = check_pgs_main_path(pgs, capture_main_path_pgs(envs, rdyn, dev))
+    k1_path, k2_path = [], {}
+    for name, n in MAIN_PATH_SYSTEMS:
+        captured, smooth = capture_main_path(envs, rdyn, fk_kernel, dev, name, n)
+        k1_path += check_pgs_main_path(pgs, captured, name)
+        k2_path[name] = time_full_dyn_main_path(fk_kernel, smooth, name)
     k2 = check_full_dyn(fk_kernel, load_system, ASSETS, dev)
     k3 = check_fk_vel(fk_kernel, load_system, ASSETS, dev)
-    check_toy_slice(PRESETS)
-    check_toy_fit(PRESETS)
-    n_pgs, n_fd, n_fk = run_training(pgs, fk_kernel)
-    step_ms = run_full_slice(PRESETS, pgs, fk_kernel)
+    for preset in TRAIN_PRESETS:
+        check_toy_slice(PRESETS, preset)
+        check_toy_fit(PRESETS, preset)
+    # every path starts with the counts at 0 and reads them at its end
+    paths = {f"train {p}": run_training(pgs, fk_kernel, p)
+             for p in TRAIN_PRESETS}
+    step_ms = {}
+    for preset, n in ACT_PRESETS:
+        step_ms[preset], paths[f"act {preset}"] = run_full_slice(
+            PRESETS, pgs, fk_kernel, preset, n)
+
+    def launches(i):
+        return (sum(v[i] for v in paths.values()),
+                {k: v[i] for k, v in paths.items()})
 
     k1_main = next(r for r in k1 if r["nc"] == 16 and r["tag"] == "cold")
     k2_main = next(r for r in k2 if r["asset"] == "half_cheetah")
     k3_main = next(r for r in k3 if r["asset"] == "half_cheetah")
+    k1_systems = {}
+    for r in k1_path:
+        k1_systems.setdefault(r["system"], {})[r["tag"]] = r["ms"]
+        k1_systems[r["system"]][f"{r['tag']}_bound_ms"] = r["bound_ms"]
     kernels = {"kernels": [
         kernel_entry("pgs_solve", "cadm_tpu_torch/csrc/pgs.cu",
-                     "cadm_tpu/ops/pgs.py:79", n_pgs,
+                     "cadm_tpu/ops/pgs.py:79", *launches(0),
                      max(r["err"] for r in k1 + k1_path), k1_main,
-                     main_path_ms={r["tag"]: r["ms"] for r in k1_path}),
+                     main_path_ms=k1_systems),
         kernel_entry("full_dyn", "cadm_tpu_torch/csrc/full_dyn.cu",
-                     "cadm_tpu/ops/fk_kernel.py:535", n_fd,
-                     max(max(r["errs"].values()) for r in k2), k2_main),
+                     "cadm_tpu/ops/fk_kernel.py:535", *launches(1),
+                     max(max(r["errs"].values()) for r in k2), k2_main,
+                     main_path_ms=k2_path),
         # on no main path (the reference's dispatcher has no caller either):
-        # its launches in the training run are 0 by design
+        # its launches on every path are 0 by design
         kernel_entry("fk_vel", "cadm_tpu_torch/csrc/full_dyn.cu",
-                     "cadm_tpu/ops/fk_kernel.py:267", n_fk,
+                     "cadm_tpu/ops/fk_kernel.py:267", *launches(2),
                      max(r["err"] for r in k3), k3_main, main_path=False),
     ]}
-    print(f"slice ms per control step (modes {list(PRESETS['halfcheetah_cadm_cem'].eval_modes)}): "
-          f"{', '.join(f'{ms:.1f}' for ms in step_ms)}")
+    for preset, ms in step_ms.items():
+        print(f"slice {preset} ms per control step (modes "
+              f"{list(PRESETS[preset].eval_modes)}): "
+              f"{', '.join(f'{x:.1f}' for x in ms)}")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -89,6 +89,27 @@ def test_gather_matches_jax_with_the_same_indices(split, n_appends):
     assert 0 < seg.valid.mean() < 1 and 0 < seg.hist_valid.mean() < 1
 
 
+@pytest.mark.parametrize("split", ["train", "valid"])
+def test_bootstrap_draws_of_five_members_match_jax(split):
+    """The PE-TS batch shape (n_members, B): every member's indices are
+    drawn independently (the bootstrap), and the gather takes them as the
+    JAX package's ``sample_segments`` does."""
+    jbuf, buf = filled(2 * S + 7, seed=4)
+    shape = (5, 16)
+    key = jax.random.key(5)
+    ref = jbuf.sample_segments(key, shape, K, M, split=split)
+    env_idx, u = jax_draws(jbuf, key, shape, split)
+    seg = buf.gather(env_idx, buf.anchor_columns(u, split), K, M)
+    for name in SEGMENT_FIELDS:
+        np.testing.assert_array_equal(getattr(seg, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    env_idx, t_idx = buf.draw_indices(torch.Generator().manual_seed(0), shape,
+                                      split)
+    assert env_idx.shape == t_idx.shape == shape
+    assert len({tuple(row) for row in t_idx.tolist()}) == 5
+
+
 def test_draw_indices_stay_in_their_split():
     _, buf = filled(2 * S + 7, seed=2)
     gen = torch.Generator().manual_seed(0)

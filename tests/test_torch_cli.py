@@ -92,3 +92,58 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
                  lambda: run.main(TINY + ["--log-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# ------------------------------------------------- the rigid presets ------
+TOY = dict(hidden=(8, 8), n_envs=2, eval_envs=2, n_candidates=6,
+           plan_horizon=2, cem_iters=1, cem_elites=2, buffer_capacity=10,
+           env_horizon=2)
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_every_rigid_preset_builds_on_the_cpu_with_the_reference_values(name):
+    from cadm_tpu.cli.presets import PRESETS as JAX_PRESETS
+
+    cfg, ref = PRESETS[name], JAX_PRESETS[name]
+    for f in dataclasses.fields(ExperimentConfig):
+        assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    env, model, planner, trainer = dataclasses.replace(cfg, **TOY).build("cpu")
+    assert env.horizon == 2 and model.cfg.n_members == cfg.ensemble
+    assert model.cfg.probabilistic == (cfg.ensemble > 1)
+    assert planner.cfg.ensemble_eval == "ts1"
+    gen = torch.Generator().manual_seed(0)
+    returns = trainer.evaluate(trainer.init(gen)[3], 1, gen)
+    assert returns.shape == (2,) and torch.isfinite(returns).all()
+
+
+def test_cripple_ant_cli_run_writes_the_reference_columns(tmp_path):
+    argv = ["--preset", "cripple_ant_cadm_ensemble_cem", "--hidden", "8,8",
+            "--n-envs", "2", "--eval-envs", "2", "--n-candidates", "6",
+            "--plan-horizon", "2", "--cem-iters", "1", "--cem-elites", "2",
+            "--n-itr", "2", "--steps-per-itr", "4", "--env-horizon", "2",
+            "--buffer-capacity", "20", "--batch-size", "4",
+            "--max-epochs", "2", "--symmetry-aug", "true",
+            "--device", "cpu", "--log-dir", str(tmp_path), "--exp-name", "ca"]
+    history = run.main(argv)
+    assert [row["itr"] for row in history] == [0, 1]
+    with open(tmp_path / "ca" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 2 and list(rows[0]) == EXPECTED_KEYS
+    for row in rows:
+        assert float(row["collect/episodes"]) == 4.0
+        for key in EXPECTED_KEYS:
+            assert row[key] not in ("", "nan"), key
+    with open(tmp_path / "ca" / "params.json") as f:
+        params = json.load(f)
+    assert params["ensemble"] == 5 and params["symmetry_aug"] is True
+
+
+@pytest.mark.parametrize("override", [
+    dict(trainer="ppo"), dict(model="stacked"), dict(model="rnn"),
+    dict(model="grbal"), dict(normalize_env=True), dict(env="cartpole"),
+    dict(env="pendulum"), dict(ensemble_eval="assign"),
+])
+def test_unported_options_raise_and_name_what_is_ported(override):
+    cfg = dataclasses.replace(PRESETS["hopper_cadm_cem"], **TOY, **override)
+    with pytest.raises(NotImplementedError, match="ported"):
+        cfg.build("cpu")

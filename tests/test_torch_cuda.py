@@ -238,3 +238,69 @@ def test_step_n_on_the_card_matches_the_cpu(dev):
     q_h, v_h = rdyn.step_n(sys_, params, *host, 5)
     np.testing.assert_allclose(q_d.cpu().numpy(), q_h.numpy(), atol=1e-5)
     np.testing.assert_allclose(v_d.cpu().numpy(), v_h.numpy(), atol=1e-4)
+
+
+def test_full_dyn_with_a_crippled_leg_act_mask(dev):
+    """CrippleAnt's per-env mask: zeroing a leg's actuators in the mask is
+    bit for bit zeroing their controls, and within tolerance of the plain
+    version run in float64."""
+    from cadm_tpu_torch.envs.ant import LEG_ACTUATORS
+
+    sys_ = load_system("ant")
+    e = 131
+    rng = np.random.RandomState(6)
+    qpos = sys_.default_qpos() + rng.uniform(-0.1, 0.1, (e, sys_.nq))
+    qpos[:, 3:7] /= np.linalg.norm(qpos[:, 3:7], axis=-1, keepdims=True)
+    mask = np.ones((e, sys_.nu))
+    for i in range(e):
+        mask[i, LEG_ACTUATORS[i % 4]] = 0.0
+    ctrl = rng.uniform(-1, 1, (e, sys_.nu))
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    q, v, ms, ds = f(qpos), f(rng.uniform(-1, 1, (e, sys_.nv))), f(
+        np.ones(e)), f(np.ones(e))
+    masked = fk_kernel.launch(sys_, q, v, f(ctrl), ms, ds, f(mask))
+    zeroed = fk_kernel.launch(sys_, q, v, f(ctrl * mask), ms, ds,
+                              f(np.ones_like(mask)))
+    assert torch.equal(masked, zeroed)
+    _, minv, vpred = fk_kernel.full_dyn(sys_, q, v, f(ctrl), ms, ds, f(mask))
+    _, minv_r, vpred_r = fk_kernel.full_dyn_plain(
+        sys_, *(x.double() for x in (q, v, f(ctrl), ms, ds, f(mask))))
+    assert (minv.double() - minv_r).abs().max().item() <= MINV_ATOL
+    assert (vpred.double() - vpred_r).abs().max().item() <= VPRED_ATOL
+
+
+@pytest.mark.parametrize("name", ["hopper", "ant", "slim_humanoid"])
+def test_pgs_kernel_on_captured_family_contacts(dev, name):
+    """K1 on a family's own contact inputs: the cold and first warm solve of
+    the control step after 10 random-action steps, against the plain
+    version; the env step launches each kernel frame_skip times."""
+    from cadm_tpu_torch.envs import make
+
+    env = make(name, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    states = env.reset(gen, 256)
+
+    def act():
+        return 2 * torch.rand(256, env.act_dim, generator=gen, device=dev) - 1
+
+    for _ in range(10):
+        states = env.step(states, act(), gen)[0]
+    captured, solve = [], rdyn.pgs_solve
+
+    def keep(A, b, vstar, actmu, lam0, *, iters):
+        captured.append((A.clone(), b.clone(), vstar.clone(), actmu.clone(),
+                         lam0.clone(), iters))
+        return solve(A, b, vstar, actmu, lam0, iters=iters)
+
+    before = (pgs.launches, fk_kernel.launches)
+    rdyn.pgs_solve = keep
+    try:
+        env.step(states, act(), gen)
+    finally:
+        rdyn.pgs_solve = solve
+    assert (pgs.launches - before[0], fk_kernel.launches - before[1]) == (
+        env.frame_skip, env.frame_skip)
+    assert [c[-1] for c in captured] == [15] + [6] * (env.frame_skip - 1)
+    assert sum(int((c[3] > 0).sum()) for c in captured[:2]) > 0
+    for A, b, vstar, actmu, lam0, iters in captured[:2]:
+        assert_pgs_matches_plain(A, b, vstar, actmu, lam0, iters)

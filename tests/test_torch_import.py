@@ -26,7 +26,9 @@ SCRIPT = textwrap.dedent("""
     names = {info.name for info in pkgutil.walk_packages(
         cadm_tpu_torch.__path__, "cadm_tpu_torch.")}
     assert {"cadm_tpu_torch.train.buffer", "cadm_tpu_torch.cli.run",
-            "cadm_tpu_torch.utils.logger"} <= names, names
+            "cadm_tpu_torch.utils.logger", "cadm_tpu_torch.envs.hopper",
+            "cadm_tpu_torch.envs.ant", "cadm_tpu_torch.envs.slim_humanoid"
+            } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
 
@@ -48,6 +50,17 @@ SCRIPT = textwrap.dedent("""
     returns = trainer.evaluate(dyn, 1, gen)
     assert returns.shape == (4,) and torch.isfinite(returns).all(), returns
     assert buffer.obs.shape == (4, cfg.buffer_capacity, 17)
+
+    # the PE-TS ensemble on CrippleAnt, symmetry-augmented fit included
+    cfg = dataclasses.replace(
+        PRESETS["cripple_ant_cadm_ensemble_cem"], hidden=(16, 16),
+        n_candidates=8, plan_horizon=3, cem_iters=1, cem_elites=2, n_envs=2,
+        eval_envs=2, env_horizon=3, buffer_capacity=12, batch_size=4,
+        steps_per_itr=6, n_itr=1, max_epochs=1, symmetry_aug=True,
+    )
+    _, _, _, trainer = cfg.build("cpu")
+    dyn, history = trainer.train(gen)
+    assert len(history) == 1 and dyn.params["fwd"][0]["w"].shape[0] == 5
 
     if not torch.cuda.is_available():
         try:
