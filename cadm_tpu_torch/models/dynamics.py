@@ -231,9 +231,8 @@ class Dynamics:
         if c.probabilistic and c.detach_logvar_trunk:
             # the same values as the fused apply; the logvar columns see
             # the trunk's features through a stop-gradient
-            feats = inp
-            for layer in head_params[:-1]:
-                feats = swish(linear(layer, feats))
+            feats = (swish(mlp_apply(head_params[:-1], inp))
+                     if len(head_params) > 1 else inp)
             last = head_params[-1]
             d = last["w"].shape[-1] // 2
             mean = linear({"w": last["w"][..., :d], "b": last["b"][..., :d]},

@@ -14,9 +14,10 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    16 × 2048 of them (a launch whose blocks share their shared-memory pool
    in rounds), and on each family's own main-path inputs: the (A, b, v*, μ,
    λ0) of one cold and one warm substep after 10 random-action control
-   steps at its preset's batch (2048 cheetahs, 512 hoppers, 1024 ants, 512
-   humanoids), with the histogram of active contacts per env; K2's device
-   time on the same step's smooth-stage inputs;
+   steps at its preset's batch (2048 cheetahs, 512 hoppers, 1024 ants and
+   crippled ants, 512 humanoids), with the histogram of active contacts per
+   env; K2 against its plain version (run in float64) on the same step's
+   smooth-stage inputs, the crippled ants' per-env leg mask included;
 3. K2 (fused smooth dynamics) against its plain version (run in float64)
    on all four rigid Systems at 2048 random states, every field of its row
    (body rotations and world inertias included), and a profiler count that
@@ -74,6 +75,10 @@ SLICE_HORIZON = 3  # control steps per eval mode in phase 8
 # tolerances: λ 1e-4 (the reference's own for its PGS kernel); M⁻¹ 5e-5,
 # v_pred 5e-4 (its fused-kernel tolerances); FK fields 1e-5
 LAM_ATOL, MINV_ATOL, VPRED_ATOL, FK_ATOL = 1e-4, 5e-5, 5e-4, 1e-5
+# on a main path the FK fields also get one float32 ulp of |ref|: the
+# kernel's float32 rows round a body acceleration of up to ~450 (humanoid)
+# by up to 2^-24·|value| ≈ 3e-5 however exactly it computes
+F32_EPS = 2.0 ** -23
 # toy slice, card vs CPU: float32 model rollouts and 5-substep physics in
 # another summation order; measured differences are far below this
 SLICE_ATOL = 1e-3
@@ -101,7 +106,7 @@ TRAIN_DEPTH = ["--n-itr", "2", "--steps-per-itr", "20", "--env-horizon", "10"]
 # each System's main path and the batch its preset runs: K1's and K2's
 # inputs are captured there (phase 2)
 MAIN_PATH_SYSTEMS = (("half_cheetah", 2048), ("hopper", 512), ("ant", 1024),
-                     ("slim_humanoid", 512))
+                     ("cripple_ant", 1024), ("slim_humanoid", 512))
 # the training paths (phase 7) and the acting paths with their env counts
 # (phase 8); phases 5 and 6 run the training presets at toy width
 TRAIN_PRESETS = ("halfcheetah_cadm_cem", "cripple_ant_cadm_ensemble_cem")
@@ -144,15 +149,20 @@ def device_ops(fn, reps: int = 1):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Mean device time in ms of one call of ``fn``: unlike ``cuda_ms`` it
-    leaves out the gaps while the host launches. A profile that saw no
-    device time (the profiler drops a cycle now and then) is taken again."""
+def device_ms(fn, reps: int = 20, ops_per_call: int = 1) -> float:
+    """Mean device time in ms of one call of ``fn``, which runs
+    ``ops_per_call`` device ops: unlike ``cuda_ms`` it leaves out the gaps
+    while the host launches. The profiler drops events now and then, so a
+    profile that did not record every op of every call is taken again."""
+    want = reps * ops_per_call
     for _ in range(3):
-        ms = sum(t for _, _, t in device_ops(fn, reps)) / reps / 1e3
-        if ms > 0:
-            return ms
-    raise AssertionError("torch.profiler saw no device time in 3 profiles")
+        ops = device_ops(fn, reps)
+        seen = sum(n for _, n, _ in ops)
+        if seen == want:
+            return sum(t for _, _, t in ops) / reps / 1e3
+    raise AssertionError(f"torch.profiler recorded {seen} device ops, not "
+                         f"{want} ({reps} calls × {ops_per_call}), in 3 "
+                         f"profiles")
 
 
 def card_line() -> str:
@@ -338,21 +348,86 @@ def check_pgs_main_path(pgs, captured, system="half_cheetah"):
     return results
 
 
-def time_full_dyn_main_path(fk_kernel, smooth, system):
-    """K2's device time on a main path's own smooth-stage inputs, and its
-    bound (as in phase 3, at this batch)."""
+def check_full_dyn_main_path(fk_kernel, smooth, system):
+    """K2 on a main path's own smooth-stage inputs (CrippleAnt's per-env
+    leg mask included)."""
     sys_, *args = smooth
-    e = args[0].shape[0]
-    ms = device_ms(lambda: fk_kernel.launch(sys_, *args))
-    n_in = sys_.nq + sys_.nv + 2 * sys_.nu + 2
-    bound_ms, bound_by = bound(4 * e * (n_in + fk_kernel.row_layout(sys_)[1]),
-                               e * full_dyn_ops(sys_), FP64_FLOPS)
-    print(f"K2 main path {system} E={e}: kernel {ms:.4f} ms (device), bound "
-          f"{bound_ms:.4f} ms ({bound_by})")
-    return dict(ms=ms, bound_ms=bound_ms)
+    r = full_dyn_case(fk_kernel, sys_, args, f"main-path {system}",
+                      fk_rtol=F32_EPS)
+    if not full_dyn_ok(r):
+        raise AssertionError(f"K2 disagrees with its plain version on the "
+                             f"main path's inputs: {r}")
+    return dict(r, system=system)
 
 
 # ------------------------------------------------------------- phase 3: K2 --
+def full_dyn_case(fk_kernel, sys_, args, label, fk_rtol=0.0):
+    """K2 against its plain version run in float64 on one batch of
+    smooth-stage inputs; times the kernel, its wrapper and the float32
+    plain version, and works out the bound.
+
+    The kernel computes in double internally; the float32 plain version
+    itself is up to 3.5e-4 off in M⁻¹ on slim_humanoid (cond(M) ≈ 3e3), so
+    the float64 plain run is the reference the tolerances apply to. It runs
+    on the constants the kernel's table holds (``f32_constants``). The
+    float32 plain version's own errors are printed beside. ``fk_over`` is
+    the FK fields' largest |err| − fk_rtol·|ref|, held to FK_ATOL.
+    """
+    def errs(out, ref):
+        (fkv, minv, vpred), (fkv_r, minv_r, vpred_r) = out, ref
+        return {
+            "minv": (minv.double() - minv_r).abs().max().item(),
+            "v_pred": (vpred.double() - vpred_r).abs().max().item(),
+            "fk": fk_err(fkv, fkv_r),
+            "fk_over": fk_err(fkv, fkv_r, fk_rtol),
+        }
+
+    e = args[0].shape[0]
+    ref = fk_kernel.full_dyn_plain(f32_constants(sys_),
+                                   *(a.double() for a in args))
+    e_kernel = errs(fk_kernel.full_dyn(sys_, *args), ref)
+    e_plain32 = errs(fk_kernel.full_dyn_plain(sys_, *args), ref)
+    ms = device_ms(lambda: fk_kernel.launch(sys_, *args))
+    call_ms = cuda_ms(lambda: fk_kernel.launch(sys_, *args), reps=20)
+    wrapper_ms = cuda_ms(lambda: fk_kernel.full_dyn(sys_, *args), reps=20)
+    plain_ms = cuda_ms(lambda: fk_kernel.full_dyn_plain(sys_, *args), reps=2)
+    # qpos, qvel, ctrl, the two scales and act_mask read once, the row
+    # written once
+    n_in = sys_.nq + sys_.nv + 2 * sys_.nu + 2
+    bound_ms, bound_by = bound(4 * e * (n_in + fk_kernel.row_layout(sys_)[1]),
+                               e * full_dyn_ops(sys_), FP64_FLOPS)
+    masked = int((args[5] == 0).any(1).sum())
+    fmt = lambda x: " ".join(f"{k}={v:.3e}" for k, v in x.items())  # noqa: E731
+    print(f"K2 full_dyn {label} nv={sys_.nv} E={e} ({masked} envs with a "
+          f"masked actuator): kernel vs plain(f64) {fmt(e_kernel)}; "
+          f"plain(f32) vs plain(f64) {fmt(e_plain32)}; kernel {ms:.4f} ms "
+          f"(device), {call_ms:.4f} ms a launch back to back, wrapper "
+          f"{wrapper_ms:.4f} ms, plain(f32) {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    return dict(label=label, errs=e_kernel, err=max(
+                    e_kernel[k] for k in ("minv", "v_pred", "fk")), ms=ms,
+                call_ms=call_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def f32_constants(sys_):
+    """The System with its float constants rounded to float32, as K2's
+    device table (and the reference's float32 System) holds them: on a
+    humanoid's main path the rounding alone moves a_com0 by ~1.3e-4."""
+    return dataclasses.replace(sys_, **{
+        f.name: np.asarray(v, np.float32).astype(np.float64)
+        if isinstance(v, np.ndarray) else float(np.float32(v))
+        for f in dataclasses.fields(sys_)
+        for v in [getattr(sys_, f.name)]
+        if isinstance(v, float) or (isinstance(v, np.ndarray)
+                                    and v.dtype == np.float64)})
+
+
+def full_dyn_ok(r) -> bool:
+    return (r["errs"]["minv"] <= MINV_ATOL and r["errs"]["v_pred"] <= VPRED_ATOL
+            and r["errs"]["fk_over"] <= FK_ATOL)
+
+
 def smooth_state(sys_, rng, n):
     """Near-default poses, random velocities/controls/scales, one masked
     actuator per 16 envs."""
@@ -369,66 +444,33 @@ def smooth_state(sys_, rng, n):
             rng.uniform(0.8, 1.2, n), am]
 
 
-def fk_err(fkv, fkv_ref) -> float:
-    return max((getattr(fkv, f).double() - getattr(fkv_ref, f)).abs().max()
-               .item() for f in FK_FIELDS)
+def fk_err(fkv, fkv_ref, rtol: float = 0.0) -> float:
+    """Largest |err| − rtol·|ref| over the FK fields."""
+    return max((getattr(fkv, f).double() - getattr(fkv_ref, f)).abs()
+               .sub(rtol * getattr(fkv_ref, f).abs()).max().item()
+               for f in FK_FIELDS)
 
 
 def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
-    """K2 against its plain version run in float64 on the same inputs.
-
-    The kernel computes in double internally; the float32 plain version
-    itself is up to 3.5e-4 off in M⁻¹ on slim_humanoid (cond(M) ≈ 3e3), so
-    the float64 plain run is the reference the tolerances apply to. The
-    float32 plain version's own errors are printed beside.
-    """
+    """K2 against its plain version run in float64 (``full_dyn_case``) on
+    all four Systems at E random states, and a profiler count that one CUDA
+    ``full_dyn`` call runs exactly one kernel and no other device op."""
     rng = np.random.RandomState(SEED)
     results = []
-
-    def errs(out, ref):
-        (fkv, minv, vpred), (fkv_r, minv_r, vpred_r) = out, ref
-        return {
-            "minv": (minv.double() - minv_r).abs().max().item(),
-            "v_pred": (vpred.double() - vpred_r).abs().max().item(),
-            "fk": fk_err(fkv, fkv_r),
-        }
-
     for asset in ASSETS:
         sys_ = load_system(asset)
         args = [torch.tensor(x, dtype=torch.float32, device=dev)
                 for x in smooth_state(sys_, rng, E)]
-        out = fk_kernel.full_dyn(sys_, *args)
-        ref = fk_kernel.full_dyn_plain(sys_, *(a.double() for a in args))
-        e_kernel = errs(out, ref)
-        e_plain32 = errs(fk_kernel.full_dyn_plain(sys_, *args), ref)
-        ms = device_ms(lambda: fk_kernel.launch(sys_, *args))
-        call_ms = cuda_ms(lambda: fk_kernel.launch(sys_, *args), reps=20)
-        wrapper_ms = cuda_ms(lambda: fk_kernel.full_dyn(sys_, *args), reps=20)
-        plain_ms = cuda_ms(lambda: fk_kernel.full_dyn_plain(sys_, *args), reps=2)
-        width = fk_kernel.row_layout(sys_)[1]
-        n_in = sys_.nq + sys_.nv + 2 * sys_.nu + 2
-        bound_ms, bound_by = bound(4 * E * (n_in + width),
-                                   E * full_dyn_ops(sys_), FP64_FLOPS)
+        r = full_dyn_case(fk_kernel, sys_, args, asset)
         ops = [(name, n) for name, n, _ in
                device_ops(lambda: fk_kernel.full_dyn(sys_, *args))]
-        fmt = lambda e: " ".join(f"{k}={v:.3e}" for k, v in e.items())  # noqa: E731
-        print(f"K2 full_dyn {asset} nv={sys_.nv} E={E}: kernel vs plain(f64) "
-              f"{fmt(e_kernel)}; plain(f32) vs plain(f64) {fmt(e_plain32)}; "
-              f"kernel {ms:.4f} ms (device), {call_ms:.4f} ms a launch back "
-              f"to back, wrapper {wrapper_ms:.4f} ms, plain(f32) "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-              f"device ops of one full_dyn call: {ops}")
+        print(f"K2 full_dyn {asset}: device ops of one full_dyn call: {ops}")
         if len(ops) != 1 or "full_dyn_kernel" not in ops[0][0] \
                 or ops[0][1] != 1:
             raise AssertionError(f"full_dyn on the card ran {ops}, not "
                                  f"exactly one full_dyn_kernel")
-        results.append(dict(asset=asset, errs=e_kernel, ms=ms,
-                            call_ms=call_ms, wrapper_ms=wrapper_ms,
-                            plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by))
-    bad = [r for r in results if not (
-        r["errs"]["minv"] <= MINV_ATOL and r["errs"]["v_pred"] <= VPRED_ATOL
-        and r["errs"]["fk"] <= FK_ATOL)]
+        results.append(dict(r, asset=asset))
+    bad = [r for r in results if not full_dyn_ok(r)]
     if bad:
         raise AssertionError(f"K2 disagrees with its plain version: {bad}")
     return results
@@ -797,11 +839,11 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = check_pgs(pgs, dev, gen)
-    k1_path, k2_path = [], {}
+    k1_path, k2_path = [], []
     for name, n in MAIN_PATH_SYSTEMS:
         captured, smooth = capture_main_path(envs, rdyn, fk_kernel, dev, name, n)
         k1_path += check_pgs_main_path(pgs, captured, name)
-        k2_path[name] = time_full_dyn_main_path(fk_kernel, smooth, name)
+        k2_path.append(check_full_dyn_main_path(fk_kernel, smooth, name))
     k2 = check_full_dyn(fk_kernel, load_system, ASSETS, dev)
     k3 = check_fk_vel(fk_kernel, load_system, ASSETS, dev)
     for preset in TRAIN_PRESETS:
@@ -833,8 +875,10 @@ def main() -> int:
                      main_path_ms=k1_systems),
         kernel_entry("full_dyn", "cadm_tpu_torch/csrc/full_dyn.cu",
                      "cadm_tpu/ops/fk_kernel.py:535", *launches(1),
-                     max(max(r["errs"].values()) for r in k2), k2_main,
-                     main_path_ms=k2_path),
+                     max(r["err"] for r in k2 + k2_path), k2_main,
+                     main_path_ms={r["system"]: {
+                         k: r[k] for k in ("ms", "bound_ms", "plain_ms", "err")}
+                         for r in k2_path}),
         # on no main path (the reference's dispatcher has no caller either):
         # its launches on every path are 0 by design
         kernel_entry("fk_vel", "cadm_tpu_torch/csrc/full_dyn.cu",
