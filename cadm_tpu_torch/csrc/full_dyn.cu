@@ -40,12 +40,23 @@
 //
 // K3 replaces the Pallas TPU kernel cadm_tpu/ops/fk_kernel.py::fk_vel_pallas
 // (body _fk_kernel_merged): the FK + velocity / bias-acceleration walk alone,
-// the first nine fields of K2's row (22·nb + 6·nv floats per env), one thread
-// per env. Both kernels call the same non-inlined device functions
-// (fk_walk, fk_body_row, fk_dof_row), so K3's fields are bit-for-bit K2's.
-// Its bound is the serial walk over the bodies per thread (latency); its
-// device-memory traffic is qpos/qvel in and the rows out.
+// the first nine fields of K2's row (22·nb + 6·nv floats per env). Both
+// kernels run every body through the same non-inlined device functions
+// (fk_body_step, fk_body_row, fk_dof_row), so K3's fields are bit-for-bit
+// K2's. What bounds it is latency too: each body's step is a chain of FP64
+// operations that needs its parent's result. Design: a group of
+// CADM_FK_LANES lanes per env in 64-thread blocks (2048 envs are 256 or 512
+// blocks over the 132 SMs); the walk goes by tree level, the lanes of a
+// group taking the bodies of one level at once (the System's level order is
+// packed into the table on the host), one __syncwarp a level: 4 dependent
+// body steps for cheetah, hopper and ant, 6 for the humanoid, where a serial
+// walk takes nb − 1. The walk state sits in shared memory, one Walk per env;
+// the block reads its envs' qpos/qvel into shared memory and the group
+// writes its row there, then the block stores its rows, one contiguous span
+// of the output, in 16-byte vectors, consecutive lanes on consecutive words.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -53,16 +64,23 @@ constexpr int NB_MAX = 16;
 constexpr int NJ_MAX = 24;
 constexpr int NV_MAX = 24;
 constexpr int NU_MAX = 24;
-constexpr int kThreads = 128;     // K3: one env per thread
 constexpr int kDynThreads = 64;   // K2: a group of G lanes per env
+constexpr int kFkThreads = 64;    // K3: a group of CADM_FK_LANES lanes per env
+// K3's lanes per env (4, 8 or 16), chosen with scripts/probe_fk_vel.py
+#ifndef CADM_FK_LANES
+#define CADM_FK_LANES 8
+#endif
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int FREE = 0, SLIDE = 2, HINGE = 3;  // cadm_tpu.physics.rigid.system
 
 struct SysTable {
-  int nb, nj, nq, nv, nu, pad_;
+  int nb, nj, nq, nv, nu;
+  int n_levels;                // tree levels below the world body
   int body_parent[NB_MAX];
   int body_jnt_start[NB_MAX];
   int body_jnt_num[NB_MAX];
+  int level_start[NB_MAX];     // level l: level_body[level_start[l] ...
+  int level_body[NB_MAX];      // ... level_start[l + 1]), bodies 1..nb-1
   int jnt_type[NJ_MAX];
   int jnt_qposadr[NJ_MAX];
   int jnt_dofadr[NJ_MAX];
@@ -93,8 +111,9 @@ struct SysTable {
 
 // All arithmetic runs in double: float32 loses up to 3.5e-4 of M⁻¹ on
 // slim_humanoid (cond(M) ≈ 3e3), the H100 has FP64 units at half the FP32
-// rate, and this kernel is bound by latency and local memory, not flops.
+// rate, and these kernels are bound by latency, not flops.
 using Real = double;
+constexpr Real kInvTwoPi = 0.15915494309189535;  // 1 / (2π)
 
 struct V3 {
   Real x, y, z;
@@ -160,12 +179,19 @@ struct Walk {
   V3 axis[NV_MAX], anchor[NV_MAX];
 };
 
-// FK + velocity / bias-acceleration walk of one env over the bodies in
-// tree order (parents first). Not inlined, like the row writers below: K2
-// and K3 run the same machine code, so their fields agree bit for bit.
-__device__ __noinline__ void fk_walk(const SysTable& S, const float* qp,
-                                     const float* qv, Walk& k) {
-  const int nb = S.nb;
+// The world body's state, where every walk starts.
+__device__ __forceinline__ void fk_root(Walk& k) {
+  const V3 z3 = {0.0, 0.0, 0.0};
+  k.pos[0] = k.w[0] = k.vx[0] = k.al[0] = k.ax[0] = z3;
+  k.quat[0] = {1.0, 0.0, 0.0, 0.0};
+}
+
+// FK + velocity / bias-acceleration step of body b ≥ 1 of one env: reads
+// its parent's state and writes its own and its dofs' (axis, anchor). Not
+// inlined, like the row writers below: K2 and K3 run the same machine code
+// for every body, so their fields agree bit for bit.
+__device__ __noinline__ void fk_body_step(const SysTable& S, const float* qp,
+                                          const float* qv, Walk& k, int b) {
   V3* pos = k.pos;
   V3* w = k.w;
   V3* vx = k.vx;
@@ -175,98 +201,108 @@ __device__ __noinline__ void fk_walk(const SysTable& S, const float* qp,
   V3* axis = k.axis;
   V3* anchor = k.anchor;
   const V3 z3 = {0.0, 0.0, 0.0};
-  pos[0] = w[0] = vx[0] = al[0] = ax[0] = z3;
-  quat[0] = {1.0, 0.0, 0.0, 0.0};
+  const int p = S.body_parent[b];
+  Q4 q = qmul(quat[p], q4(S.body_quat[b]));
+  const V3 off = qrot(quat[p], v3(S.body_pos[b]));
+  V3 x = add(pos[p], off);
+  V3 om = w[p], alp = al[p];
+  V3 v = add(vx[p], cross(om, off));
+  V3 a = add(add(ax[p], cross(alp, off)), cross(om, cross(om, off)));
 
-  for (int b = 1; b < nb; ++b) {
-    const int p = S.body_parent[b];
-    Q4 q = qmul(quat[p], q4(S.body_quat[b]));
-    const V3 off = qrot(quat[p], v3(S.body_pos[b]));
-    V3 x = add(pos[p], off);
-    V3 om = w[p], alp = al[p];
-    V3 v = add(vx[p], cross(om, off));
-    V3 a = add(add(ax[p], cross(alp, off)), cross(om, cross(om, off)));
-
-    const int j_end = S.body_jnt_start[b] + S.body_jnt_num[b];
-    for (int j = S.body_jnt_start[b]; j < j_end; ++j) {
-      const int qa = S.jnt_qposadr[j], da = S.jnt_dofadr[j];
-      const int jt = S.jnt_type[j];
-      if (jt == FREE) {
-        x = v3(qp + qa);
-        const Q4 qr = q4(qp + qa + 3);
-        const Real qn =
-            rsqrt(qr.w * qr.w + qr.x * qr.x + qr.y * qr.y + qr.z * qr.z);
-        q = {qr.w * qn, qr.x * qn, qr.y * qn, qr.z * qn};
-        v = v3(qv + da);
-        om = qrot(q, v3(qv + da + 3));
-        alp = z3;  // Σ q̇ᵢ (ω × aᵢ) = ω × ω = 0
-        a = z3;
-        const V3 e[3] = {{1.0, 0.0, 0.0}, {0.0, 1.0, 0.0}, {0.0, 0.0, 1.0}};
-        for (int i = 0; i < 3; ++i) {
-          axis[da + i] = e[i];
-          anchor[da + i] = z3;
-          axis[da + 3 + i] = qrot(q, e[i]);
-          anchor[da + 3 + i] = x;
-        }
-      } else if (jt == SLIDE) {
-        const V3 aw = qrot(q, v3(S.jnt_axis[j]));
-        const Real s = (Real)qp[qa] - S.jnt_qpos0[j];
-        const Real sd = qv[da];
-        x = add(x, scale(aw, s));
-        // axis is fixed in the pre-joint frame: ȧ = ω × a
-        const V3 wxa = cross(om, aw);
-        v = add(v, add(scale(wxa, s), scale(aw, sd)));
-        a = add(a, add(add(scale(cross(alp, aw), s), scale(cross(om, wxa), s)),
-                       scale(wxa, 2.0 * sd)));
-        axis[da] = aw;
-        anchor[da] = x;
-      } else {  // HINGE
-        const V3 aw = qrot(q, v3(S.jnt_axis[j]));
-        const V3 ow = add(x, qrot(q, v3(S.jnt_pos[j])));
-        const Real th = (Real)qp[qa] - S.jnt_qpos0[j];
-        const Real thd = qv[da];
-        Real sh, ch;
-        sincos(0.5 * th, &sh, &ch);
-        const Q4 dq = {ch, aw.x * sh, aw.y * sh, aw.z * sh};
-        q = qmul(dq, q);
-        // anchor point kinematics (material point of the pre-joint frame)
-        const V3 rel_o = sub(ow, x);
-        const V3 v_o = add(v, cross(om, rel_o));
-        const V3 a_o = add(add(a, cross(alp, rel_o)), cross(om, cross(om, rel_o)));
-        x = add(ow, qrot(dq, sub(x, ow)));
-        const V3 om_new = add(om, scale(aw, thd));
-        const V3 alp_new = add(alp, scale(cross(om, aw), thd));
-        // new origin is a material point of the post-joint body
-        const V3 rel_n = sub(x, ow);
-        v = add(v_o, cross(om_new, rel_n));
-        a = add(add(a_o, cross(alp_new, rel_n)),
-                cross(om_new, cross(om_new, rel_n)));
-        om = om_new;
-        alp = alp_new;
-        axis[da] = aw;
-        anchor[da] = ow;
+  const int j_end = S.body_jnt_start[b] + S.body_jnt_num[b];
+  for (int j = S.body_jnt_start[b]; j < j_end; ++j) {
+    const int qa = S.jnt_qposadr[j], da = S.jnt_dofadr[j];
+    const int jt = S.jnt_type[j];
+    if (jt == FREE) {
+      x = v3(qp + qa);
+      const Q4 qr = q4(qp + qa + 3);
+      const Real qn =
+          rsqrt(qr.w * qr.w + qr.x * qr.x + qr.y * qr.y + qr.z * qr.z);
+      q = {qr.w * qn, qr.x * qn, qr.y * qn, qr.z * qn};
+      v = v3(qv + da);
+      om = qrot(q, v3(qv + da + 3));
+      alp = z3;  // Σ q̇ᵢ (ω × aᵢ) = ω × ω = 0
+      a = z3;
+      const V3 e[3] = {{1.0, 0.0, 0.0}, {0.0, 1.0, 0.0}, {0.0, 0.0, 1.0}};
+      for (int i = 0; i < 3; ++i) {
+        axis[da + i] = e[i];
+        anchor[da + i] = z3;
+        axis[da + 3 + i] = qrot(q, e[i]);
+        anchor[da + 3 + i] = x;
       }
+    } else if (jt == SLIDE) {
+      const V3 aw = qrot(q, v3(S.jnt_axis[j]));
+      const Real s = (Real)qp[qa] - S.jnt_qpos0[j];
+      const Real sd = qv[da];
+      x = add(x, scale(aw, s));
+      // axis is fixed in the pre-joint frame: ȧ = ω × a
+      const V3 wxa = cross(om, aw);
+      v = add(v, add(scale(wxa, s), scale(aw, sd)));
+      a = add(a, add(add(scale(cross(alp, aw), s), scale(cross(om, wxa), s)),
+                     scale(wxa, 2.0 * sd)));
+      axis[da] = aw;
+      anchor[da] = x;
+    } else {  // HINGE
+      const V3 aw = qrot(q, v3(S.jnt_axis[j]));
+      const V3 ow = add(x, qrot(q, v3(S.jnt_pos[j])));
+      const Real th = (Real)qp[qa] - S.jnt_qpos0[j];
+      const Real thd = qv[da];
+      // sin and cos of th / 2 by sincospi: double sincos's slow path for
+      // huge arguments keeps a 40-byte array in local memory in every
+      // kernel that reaches it, while sincospi reduces its argument exactly
+      Real sh, ch;
+      sincospi(th * kInvTwoPi, &sh, &ch);
+      const Q4 dq = {ch, aw.x * sh, aw.y * sh, aw.z * sh};
+      q = qmul(dq, q);
+      // anchor point kinematics (material point of the pre-joint frame)
+      const V3 rel_o = sub(ow, x);
+      const V3 v_o = add(v, cross(om, rel_o));
+      const V3 a_o = add(add(a, cross(alp, rel_o)), cross(om, cross(om, rel_o)));
+      x = add(ow, qrot(dq, sub(x, ow)));
+      const V3 om_new = add(om, scale(aw, thd));
+      const V3 alp_new = add(alp, scale(cross(om, aw), thd));
+      // new origin is a material point of the post-joint body
+      const V3 rel_n = sub(x, ow);
+      v = add(v_o, cross(om_new, rel_n));
+      a = add(add(a_o, cross(alp_new, rel_n)),
+              cross(om_new, cross(om_new, rel_n)));
+      om = om_new;
+      alp = alp_new;
+      axis[da] = aw;
+      anchor[da] = ow;
     }
-    pos[b] = x;
-    quat[b] = q;
-    w[b] = om;
-    vx[b] = v;
-    al[b] = alp;
-    ax[b] = a;
   }
+  pos[b] = x;
+  quat[b] = q;
+  w[b] = om;
+  vx[b] = v;
+  al[b] = alp;
+  ax[b] = a;
+}
+
+// The walk of one env over the bodies in tree order (parents first), in one
+// lane: K2's.
+__device__ __noinline__ void fk_walk(const SysTable& S, const float* qp,
+                                     const float* qv, Walk& k) {
+  fk_root(k);
+  for (int b = 1; b < S.nb; ++b) fk_body_step(S, qp, qv, k, b);
 }
 
 
 // Write body b's seven FK fields of one env's row (layout of
 // ops/fk_kernel.py::row_layout: pos, quat, com, omega, v_com, alpha0, a_com0)
-// starting at o; returns the body's COM and zero-q̈ COM acceleration.
+// starting at o; keeps the body's COM in c[b] and its zero-q̈ COM
+// acceleration in c[nb + b].
 __device__ __noinline__ void fk_body_row(const SysTable& S, const Walk& k,
-                                         int b, float* o, V3& com, V3& acom) {
+                                         int b, float* o, V3* c) {
   const int nb = S.nb;
   const V3 rc = qrot(k.quat[b], v3(S.body_ipos[b]));
-  com = add(k.pos[b], rc);
+  const V3 com = add(k.pos[b], rc);
   const V3 vcom = add(k.vx[b], cross(k.w[b], rc));
-  acom = add(add(k.ax[b], cross(k.al[b], rc)), cross(k.w[b], cross(k.w[b], rc)));
+  const V3 acom =
+      add(add(k.ax[b], cross(k.al[b], rc)), cross(k.w[b], cross(k.w[b], rc)));
+  c[b] = com;
+  c[nb + b] = acom;
   put3(o + 3 * b, k.pos[b]);
   float* o_quat = o + 3 * nb + 4 * b;
   o_quat[0] = (float)k.quat[b].w;
@@ -376,7 +412,7 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
   if (lane == 0) fk_walk(S, qp, qv, k);
   __syncwarp(gmask);
   for (int b = lane; b < nb; b += G) {
-    fk_body_row(S, k, b, o, com[b], acom[b]);
+    fk_body_row(S, k, b, o, com);
     const Q4 qb = k.quat[b];
     Real R[3][3], Ri[3][3], I[3][3];
     quat_mat(qb, R);
@@ -510,20 +546,74 @@ full_dyn_kernel(const SysTable* __restrict__ gsys,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// bytes of one env's shared scratch in K3: its Walk, then its COM and COM
+// acceleration (V3 per body), then its row, qpos and qvel (floats); the
+// block keeps each part for all its envs together, in that order
+__host__ __device__ __forceinline__ size_t fk_vel_env_bytes(int nb, int nq,
+                                                            int nv) {
+  return sizeof(Walk) + 2 * nb * sizeof(V3) +
+         sizeof(float) * (22 * nb + 6 * nv + nq + nv);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kFkThreads)
 fk_vel_kernel(const SysTable* __restrict__ gsys,
               const float* __restrict__ qpos, const float* __restrict__ qvel,
-              float* __restrict__ out, int E, int out_stride) {
+              float* __restrict__ out, int E) {
+  // a block's first env is a multiple of 4, so at any row width its span
+  // of the output starts on 16 bytes (the wrapper's output is aligned)
+  constexpr int kGroups = kFkThreads / G;
+  static_assert(G <= 16 && kGroups % 4 == 0, "4, 8 or 16 lanes per env");
   __shared__ __align__(16) SysTable S;
+  extern __shared__ __align__(16) Real fsm[];
   load_table(gsys, S);
-  const long long env = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= E) return;
-  Walk k;
-  fk_walk(S, qpos + env * S.nq, qvel + env * S.nv, k);
-  float* o = out + env * out_stride;
-  V3 com, acom;
-  for (int b = 0; b < S.nb; ++b) fk_body_row(S, k, b, o, com, acom);
-  for (int d = 0; d < S.nv; ++d) fk_dof_row(S, k, d, o);
+  const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+  const unsigned gmask = ((1u << G) - 1u) << ((threadIdx.x % 32) & ~(G - 1));
+  const int nb = S.nb, nq = S.nq, nv = S.nv, width = 22 * nb + 6 * nv;
+  const long long env0 = (long long)blockIdx.x * kGroups;
+  const int n_env = (int)min((long long)kGroups, E - env0);
+
+  Walk* walks = reinterpret_cast<Walk*>(fsm);
+  V3* com = reinterpret_cast<V3*>(walks + kGroups);  // [grp][COM nb, acc nb]
+  float* rows = reinterpret_cast<float*>(com + 2 * nb * kGroups);
+  float* qp = rows + kGroups * width;
+  float* qv = qp + kGroups * nq;
+
+  // the block's qpos and qvel, consecutive lanes on consecutive words
+  for (int i = threadIdx.x; i < n_env * nq; i += kFkThreads)
+    qp[i] = qpos[env0 * nq + i];
+  for (int i = threadIdx.x; i < n_env * nv; i += kFkThreads)
+    qv[i] = qvel[env0 * nv + i];
+  __syncthreads();
+
+  // a group past E idles, but stays for the block's barriers
+  if (grp < n_env) {
+    Walk& k = walks[grp];
+    const float* q = qp + grp * nq;
+    const float* v = qv + grp * nv;
+    if (lane == 0) fk_root(k);
+    __syncwarp(gmask);
+    // level by level: a body's step reads only its parent's state
+    for (int l = 0; l < S.n_levels; ++l) {
+      for (int i = S.level_start[l] + lane; i < S.level_start[l + 1]; i += G)
+        fk_body_step(S, q, v, k, S.level_body[i]);
+      __syncwarp(gmask);
+    }
+    float* row = rows + grp * width;
+    V3* c = com + 2 * nb * grp;
+    for (int b = lane; b < nb; b += G) fk_body_row(S, k, b, row, c);
+    for (int d = lane; d < nv; d += G) fk_dof_row(S, k, d, row);
+  }
+  __syncthreads();
+
+  // the block's rows are one span of the output: 16-byte stores, then the
+  // tail word by word
+  float* o = out + env0 * width;
+  const int total = n_env * width, n4 = total / 4;
+  for (int i = threadIdx.x; i < n4; i += kFkThreads)
+    reinterpret_cast<float4*>(o)[i] = reinterpret_cast<const float4*>(rows)[i];
+  for (int i = 4 * n4 + threadIdx.x; i < total; i += kFkThreads)
+    o[i] = rows[i];
 }
 
 template <int G>
@@ -569,13 +659,26 @@ extern "C" int cadm_full_dyn(const void* table, const float* qpos,
                              scratch, s);
 }
 
+// out: E contiguous rows of 22·nb + 6·nv floats, 16-byte aligned
 extern "C" int cadm_fk_vel(const void* table, const float* qpos,
-                           const float* qvel, float* out, int E,
-                           int out_stride, void* stream) {
+                           const float* qvel, float* out, int E, int nb,
+                           int nq, int nv, void* stream) {
   if (E <= 0) return 0;
-  const int blocks = (E + kThreads - 1) / kThreads;
-  fk_vel_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const SysTable*>(table), qpos, qvel, out, E, out_stride);
+  if (nb < 1 || nb > NB_MAX || nv < 1 || nv > NV_MAX || nq < 1)
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  constexpr int G = CADM_FK_LANES, kGroups = kFkThreads / G;
+  const size_t smem = kGroups * fk_vel_env_bytes(nb, nq, nv);
+  if (smem + sizeof(SysTable) > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fk_vel_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (E + kGroups - 1) / kGroups;
+  fk_vel_kernel<G><<<blocks, kFkThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const SysTable*>(table), qpos, qvel, out, E);
   return (int)cudaGetLastError();
 }
 

@@ -42,8 +42,8 @@ _SIGNATURES = {
     # table, qpos, qvel, ctrl, mass_scale, damping_scale, act_mask, out,
     # E, out_stride, nb, nv, stream
     "cadm_full_dyn": [_P] * 8 + [_I] * 4 + [_P],
-    # table, qpos, qvel, out, E, out_stride, stream
-    "cadm_fk_vel": [_P] * 4 + [_I] * 2 + [_P],
+    # table, qpos, qvel, out, E, nb, nq, nv, stream
+    "cadm_fk_vel": [_P] * 4 + [_I] * 4 + [_P],
     # sizeof(SysTable), to check the host mirror's layout
     "cadm_sys_table_bytes": [],
 }

@@ -18,12 +18,14 @@ details.
 K3 replaces ``cadm_tpu/ops/fk_kernel.py::fk_vel_pallas`` (body
 ``_fk_kernel_merged``) together with its dispatcher ``_fkvel_dispatch``
 (``cadm_tpu/physics/rigid/dynamics.py:347-399``): ``fk_vel`` launches the
-FK-velocity walk of ``csrc/full_dyn.cu`` for a CUDA tensor (one thread per
-env, the walk that K2 runs) and derives the body rotations and world
-inertias from its quaternions, as the dispatcher's kernel branch does, since
-its rows hold only the nine FK fields; a CPU tensor takes ``fk_vel_plain``
-(``kinematics.forward_velocities``). No trainer path calls it: it serves
-callers that need FK without the dynamics.
+FK-velocity walk of ``csrc/full_dyn.cu`` for a CUDA tensor (a group of lanes
+per env, walking the tree level by level in the order ``walk_levels`` packs
+into the table, each body through K2's per-body step) and derives the body
+rotations and world inertias from its quaternions, as the dispatcher's
+kernel branch does, since its rows hold only the nine FK fields; a CPU
+tensor takes ``fk_vel_plain`` (``kinematics.forward_velocities``). No
+trainer path calls it: it serves callers that need FK without the
+dynamics.
 
 Both kernels read the System from a packed table (``SysTable``, one layout
 for every System), so the same binary serves all four rigid families.
@@ -63,10 +65,12 @@ class SysTable(ctypes.Structure):
 
     _fields_ = [
         ("nb", _i), ("nj", _i), ("nq", _i), ("nv", _i), ("nu", _i),
-        ("pad_", _i),
+        ("n_levels", _i),
         ("body_parent", _i * NB_MAX),
         ("body_jnt_start", _i * NB_MAX),
         ("body_jnt_num", _i * NB_MAX),
+        ("level_start", _i * NB_MAX),
+        ("level_body", _i * NB_MAX),
         ("jnt_type", _i * NJ_MAX),
         ("jnt_qposadr", _i * NJ_MAX),
         ("jnt_dofadr", _i * NJ_MAX),
@@ -96,6 +100,21 @@ class SysTable(ctypes.Structure):
     ]
 
 
+def walk_levels(sys: System) -> Tuple[Tuple[int, ...], ...]:
+    """Bodies 1..nb-1 by depth below the world body (level l holds the
+    bodies at depth l + 1, in body order): K3's walk takes a level at once,
+    since a body's step reads only its parent's state. Raises where a
+    parent does not precede its body, which the serial walk relies on."""
+    depth = [0] * sys.nb
+    for b in range(1, sys.nb):
+        p = int(sys.body_parent[b])
+        if not 0 <= p < b:
+            raise ValueError(f"body {b}'s parent {p} does not precede it")
+        depth[b] = depth[p] + 1
+    return tuple(tuple(b for b in range(1, sys.nb) if depth[b] == d)
+                 for d in range(1, max(depth) + 1))
+
+
 def pack_system(sys: System) -> SysTable:
     """The System as the kernel's table (raises beyond the table's maxima)."""
     nb, nj, nv, nu = sys.nb, sys.nj, sys.nv, sys.nu
@@ -104,6 +123,12 @@ def pack_system(sys: System) -> SysTable:
         raise ValueError(f"System too large for the kernels' table: nb={nb} "
                          f"nj={nj} nv={nv} nu={nu}")
     t = SysTable(nb=nb, nj=nj, nq=sys.nq, nv=nv, nu=nu)
+    levels = walk_levels(sys)
+    t.n_levels = len(levels)
+    for i, b in enumerate(b for level in levels for b in level):
+        t.level_body[i] = b
+    for lvl in range(len(levels)):
+        t.level_start[lvl + 1] = t.level_start[lvl] + len(levels[lvl])
     for b in range(nb):
         joints = np.nonzero(sys.jnt_body == b)[0]
         # the walk applies a body's joints in order: they must be contiguous
@@ -262,7 +287,8 @@ def launch_fk_vel(sys: System, qpos: Tensor, qvel: Tensor) -> Tensor:
     out = torch.empty(e, width, device=qpos.device, dtype=torch.float32)
     code = _build.lib().cadm_fk_vel(
         _device_table(sys, qpos.device).data_ptr(), qpos.data_ptr(),
-        qvel.data_ptr(), out.data_ptr(), e, width, _build.stream_handle(qpos),
+        qvel.data_ptr(), out.data_ptr(), e, sys.nb, sys.nq, sys.nv,
+        _build.stream_handle(qpos),
     )
     _build.check(code, "fk_vel")
     fk_vel_launches += 1

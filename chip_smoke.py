@@ -22,8 +22,12 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    on all four rigid Systems at 2048 random states, every field of its row
    (body rotations and world inertias included), and a profiler count that
    one CUDA ``full_dyn`` call runs exactly one kernel and no other device op;
-4. K3 (FK-velocity walk) against its plain version (run in float64) on all
-   four rigid Systems at 2048 random states;
+4. K3 (FK-velocity walk) against its plain version (run in float64 on the
+   constants its table holds) on all four rigid Systems at 2048 and at
+   65,536 random states, its rows bit for bit K2's first columns, with its
+   device, launch and wrapper times, bound and share of it at each size,
+   and a profiler count that one ``launch_fk_vel`` runs exactly one kernel
+   and no other device op;
 5. a toy-width slice (plan → env step, 3 control steps) on the card against
    the same slice on the CPU (plain versions), same weights/states/noise,
    for ``halfcheetah_cadm_cem`` and for ``cripple_ant_cadm_ensemble_cem``
@@ -71,6 +75,8 @@ import torch
 
 SEED = 0
 E = 2048  # envs for the kernel checks (the preset's batch)
+FK_VEL_ENVS = (E, 65536)  # K3's random states: the preset batch, and one
+# large enough that the bytes, not the launch, set its bound
 SLICE_HORIZON = 3  # control steps per eval mode in phase 8
 # tolerances: λ 1e-4 (the reference's own for its PGS kernel); M⁻¹ 5e-5,
 # v_pred 5e-4 (its fused-kernel tolerances); FK fields 1e-5
@@ -478,43 +484,69 @@ def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
 
 # ------------------------------------------------------------- phase 4: K3 --
 def check_fk_vel(fk_kernel, load_system, ASSETS, dev):
-    """K3 against its plain version run in float64, on the draws of phase 3
-    (same seed): every field, and quat_to_mat(quat) against body_rot."""
+    """K3 against its plain version run in float64 on the constants its
+    table holds (``f32_constants``), on every System at each of
+    FK_VEL_ENVS random states: every field, and quat_to_mat(quat) against
+    body_rot; its rows against K2's first ``fk_width`` columns on the same
+    states, bit for bit; a profiler count that one ``launch_fk_vel`` runs
+    exactly one device op, ``fk_vel_kernel``."""
     from cadm_tpu_torch.physics.rigid.math3d import quat_to_mat
 
     rng = np.random.RandomState(SEED)
     results = []
     for asset in ASSETS:
         sys_ = load_system(asset)
-        qpos, qvel = (torch.tensor(x, dtype=torch.float32, device=dev)
-                      for x in smooth_state(sys_, rng, E)[:2])
-        ref = fk_kernel.fk_vel_plain(sys_, qpos.double(), qvel.double())
-        err = fk_err(fk_kernel.fk_vel(sys_, qpos, qvel), ref)
-        rows = fk_kernel.launch_fk_vel(sys_, qpos, qvel)
-        off, nb, _ = fk_kernel.row_layout(sys_)[0]["quat"]
-        quat = rows[:, off: off + 4 * nb].view(E, nb, 4)
-        err_rot = (quat_to_mat(quat).double() - ref.body_rot).abs().max().item()
-        ms = device_ms(lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel))
-        call_ms = cuda_ms(lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel),
-                          reps=20)
-        wrapper_ms = cuda_ms(lambda: fk_kernel.fk_vel(sys_, qpos, qvel), reps=20)
-        plain_ms = cuda_ms(lambda: fk_kernel.fk_vel_plain(sys_, qpos, qvel),
-                           reps=2)
-        bound_ms, bound_by = bound(
-            4 * E * (sys_.nq + sys_.nv + fk_kernel.fk_width(sys_)),
-            E * fk_ops(sys_), FP64_FLOPS)
-        print(f"K3 fk_vel {asset} nb={sys_.nb} nv={sys_.nv} E={E}: kernel vs "
-              f"plain(f64) fields {err:.3e}, quat_to_mat(quat) vs body_rot "
-              f"{err_rot:.3e}; kernel {ms:.4f} ms (device), {call_ms:.4f} ms "
-              f"a launch back to back, wrapper (+ derived "
-              f"rotations/inertias) {wrapper_ms:.4f} ms, plain(f32) "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        results.append(dict(asset=asset, err=max(err, err_rot), ms=ms,
-                            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by))
-    bad = [r for r in results if not r["err"] <= FK_ATOL]
+        ref_sys = f32_constants(sys_)
+        for e in FK_VEL_ENVS:
+            qpos, qvel = (torch.tensor(x, dtype=torch.float32, device=dev)
+                          for x in smooth_state(sys_, rng, e)[:2])
+            ref = fk_kernel.fk_vel_plain(ref_sys, qpos.double(), qvel.double())
+            err = fk_err(fk_kernel.fk_vel(sys_, qpos, qvel), ref)
+            rows = fk_kernel.launch_fk_vel(sys_, qpos, qvel)
+            off, nb, _ = fk_kernel.row_layout(sys_)[0]["quat"]
+            rot = quat_to_mat(rows[:, off: off + 4 * nb].view(e, nb, 4))
+            err_rot = (rot.double() - ref.body_rot).abs().max().item()
+            # K2's first fk_width columns come from the same per-body code
+            ones, u = torch.ones(e, device=dev), torch.ones(e, sys_.nu,
+                                                            device=dev)
+            k2_rows = fk_kernel.launch(sys_, qpos, qvel, torch.zeros_like(u),
+                                       ones, ones, u)
+            same = torch.equal(k2_rows[:, : rows.shape[1]], rows)
+
+            def launch():
+                return fk_kernel.launch_fk_vel(sys_, qpos, qvel)
+
+            ms = device_ms(launch)
+            call_ms = cuda_ms(launch, reps=20)
+            wrapper_ms = cuda_ms(lambda: fk_kernel.fk_vel(sys_, qpos, qvel),
+                                 reps=20)
+            plain_ms = cuda_ms(lambda: fk_kernel.fk_vel_plain(sys_, qpos, qvel),
+                               reps=2)
+            bound_ms, bound_by = bound(
+                4 * e * (sys_.nq + sys_.nv + fk_kernel.fk_width(sys_)),
+                e * fk_ops(sys_), FP64_FLOPS)
+            print(f"K3 fk_vel {asset} nb={sys_.nb} nv={sys_.nv} E={e}: kernel "
+                  f"vs plain(f64) fields {err:.3e}, quat_to_mat(quat) vs "
+                  f"body_rot {err_rot:.3e}, rows bit for bit K2's {same}; "
+                  f"kernel {ms:.4f} ms (device), "
+                  f"{call_ms:.4f} ms a launch back to back, wrapper (+ "
+                  f"derived rotations/inertias) {wrapper_ms:.4f} ms, "
+                  f"plain(f32) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100 * bound_ms / ms:.1f} % of it")
+            results.append(dict(asset=asset, e=e, err=max(err, err_rot),
+                                same=same, ms=ms, call_ms=call_ms,
+                                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                share=bound_ms / ms))
+        ops = [(name, n) for name, n, _ in device_ops(launch)]
+        print(f"K3 fk_vel {asset}: device ops of one launch_fk_vel: {ops}")
+        if len(ops) != 1 or "fk_vel_kernel" not in ops[0][0] or ops[0][1] != 1:
+            raise AssertionError(f"launch_fk_vel on the card ran {ops}, not "
+                                 f"exactly one fk_vel_kernel")
+    bad = [r for r in results if not (r["err"] <= FK_ATOL and r["same"])]
     if bad:
-        raise AssertionError(f"K3 disagrees with its plain version: {bad}")
+        raise AssertionError(f"K3 disagrees with its plain version or with "
+                             f"K2's rows: {bad}")
     return results
 
 
@@ -863,11 +895,17 @@ def main() -> int:
 
     k1_main = next(r for r in k1 if r["nc"] == 16 and r["tag"] == "cold")
     k2_main = next(r for r in k2 if r["asset"] == "half_cheetah")
-    k3_main = next(r for r in k3 if r["asset"] == "half_cheetah")
+    k3_main = next(r for r in k3
+                   if r["asset"] == "half_cheetah" and r["e"] == E)
     k1_systems = {}
     for r in k1_path:
         k1_systems.setdefault(r["system"], {})[r["tag"]] = r["ms"]
         k1_systems[r["system"]][f"{r['tag']}_bound_ms"] = r["bound_ms"]
+    k3_sizes = {}
+    for r in k3:
+        k3_sizes.setdefault(r["asset"], {})[str(r["e"])] = {
+            k: r[k] for k in ("ms", "call_ms", "wrapper_ms", "plain_ms",
+                              "bound_ms", "share", "err")}
     kernels = {"kernels": [
         kernel_entry("pgs_solve", "cadm_tpu_torch/csrc/pgs.cu",
                      "cadm_tpu/ops/pgs.py:79", *launches(0),
@@ -883,7 +921,8 @@ def main() -> int:
         # its launches on every path are 0 by design
         kernel_entry("fk_vel", "cadm_tpu_torch/csrc/full_dyn.cu",
                      "cadm_tpu/ops/fk_kernel.py:267", *launches(2),
-                     max(r["err"] for r in k3), k3_main, main_path=False),
+                     max(r["err"] for r in k3), k3_main, main_path=False,
+                     by_envs=k3_sizes),
     ]}
     for preset, ms in step_ms.items():
         print(f"slice {preset} ms per control step (modes "

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels K1 (PGS) and K2 (fused smooth dynamics) of two trees of the
-PyTorch port on one card, on the same inputs.
+"""Time kernels K1 (PGS), K2 (fused smooth dynamics) and K3 (FK-velocity
+walk) of two trees of the PyTorch port on one card, on the same inputs.
 
     git archive <commit> | tar -x -C _archive/parent   # any git-ignored dir
     python scripts/compare_kernels.py --parent _archive/parent
@@ -8,15 +8,18 @@ PyTorch port on one card, on the same inputs.
 The inputs are ``chip_smoke.py``'s: K1 on 2048 random systems at nc 16, cold
 (15 sweeps) and warm (6), and on the main path's own (A, b, v*, μ, λ0) of one
 cold and one warm substep of 2048 cheetahs, captured once with this tree's
-env; K2 at 2048 random cheetah states (kernel alone, and the ``full_dyn``
-wrapper); and the env step of 2048 cheetahs under random actions (host
-clock, ms per control step). Kernel times are device times from ``torch.profiler``; "call
-ms" is the time per call of 50 calls back to back (CUDA events), host
-launch gaps included. Each tree runs in its own process, in the order
-parent, this, this, parent, each building its own kernels; every process
-prints one JSON line, and the script prints them and their per-tree means. Each process
-also checks its kernels against this tree's plain versions (λ 1e-4, M⁻¹ 5e-5
-and v_pred 5e-4 against the plain version in float64).
+env; K2 at 2048 random cheetah and slim_humanoid states (kernel alone, and
+the ``full_dyn`` wrapper); K3 at random states of all four Systems at 2048
+and 65,536 envs; and the env step of 2048 cheetahs under random actions
+(host clock, ms per control step). Kernel times are device times from
+``torch.profiler``; "call ms" is the time per call of 50 calls back to back
+(CUDA events), host launch gaps included. Each tree runs in its own
+process, in the order parent, this, this, parent, each building its own
+kernels; every process prints one JSON line, and the script prints them and
+their per-tree means. Each process also checks its kernels against this
+tree's plain versions (λ 1e-4; M⁻¹ 5e-5, v_pred 5e-4 and the FK fields 1e-5
+against the plain version in float64 on the float32 constants the kernels'
+table holds).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K2_SYSTEMS = ("half_cheetah", "slim_humanoid")
 
 
 def time_tree(tree: str, inputs: str) -> dict:
@@ -49,7 +53,7 @@ def time_tree(tree: str, inputs: str) -> dict:
         del sys.modules[name]
     sys.path.insert(0, os.path.abspath(tree))
     from cadm_tpu_torch import envs
-    from cadm_tpu_torch.envs.rigid_base import load_system
+    from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
     from cadm_tpu_torch.ops import _build, fk_kernel, pgs
 
     assert os.path.abspath(_build.__file__).startswith(os.path.abspath(tree))
@@ -74,26 +78,47 @@ def time_tree(tree: str, inputs: str) -> dict:
 
         out[f"K1 {label} ms"] = cs.device_ms(call, reps=50)
         out[f"K1 {label} call ms"] = cs.cuda_ms(call, reps=50)
-    sys_ = load_system("half_cheetah")
-    args = [torch.tensor(x, dtype=torch.float32, device=dev)
-            for x in cs.smooth_state(sys_, np.random.RandomState(cs.SEED), cs.E)]
-    _, minv, vpred = fk_kernel.full_dyn(sys_, *args)
-    _, minv_r, vpred_r = ref_fk.full_dyn_plain(ref_load("half_cheetah"),
-                                              *(a.double() for a in args))
-    out["K2 minv err"] = (minv.double() - minv_r).abs().max().item()
-    out["K2 v_pred err"] = (vpred.double() - vpred_r).abs().max().item()
-    out["K2 kernel ms"] = cs.device_ms(lambda: fk_kernel.launch(sys_, *args),
-                                       reps=50)
-    out["K2 kernel call ms"] = cs.cuda_ms(
-        lambda: fk_kernel.launch(sys_, *args), reps=50)
-    out["K2 wrapper ms"] = cs.cuda_ms(lambda: fk_kernel.full_dyn(sys_, *args),
-                                      reps=50)
+    for asset in K2_SYSTEMS:
+        sys_ = load_system(asset)
+        args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in
+                cs.smooth_state(sys_, np.random.RandomState(cs.SEED), cs.E)]
+        _, minv, vpred = fk_kernel.full_dyn(sys_, *args)
+        _, minv_r, vpred_r = ref_fk.full_dyn_plain(
+            cs.f32_constants(ref_load(asset)), *(a.double() for a in args))
+        out[f"K2 {asset} minv err"] = (minv.double() - minv_r).abs().max().item()
+        out[f"K2 {asset} v_pred err"] = (
+            vpred.double() - vpred_r).abs().max().item()
+        out[f"K2 {asset} kernel ms"] = cs.device_ms(
+            lambda: fk_kernel.launch(sys_, *args), reps=50)
+        out[f"K2 {asset} kernel call ms"] = cs.cuda_ms(
+            lambda: fk_kernel.launch(sys_, *args), reps=50)
+        out[f"K2 {asset} wrapper ms"] = cs.cuda_ms(
+            lambda: fk_kernel.full_dyn(sys_, *args), reps=50)
+    rng = np.random.RandomState(cs.SEED)
+    for asset in ASSETS:
+        sys_ = load_system(asset)
+        for e in cs.FK_VEL_ENVS:
+            qpos, qvel = (torch.tensor(x, dtype=torch.float32, device=dev)
+                          for x in cs.smooth_state(sys_, rng, e)[:2])
+            ref = ref_fk.fk_vel_plain(cs.f32_constants(ref_load(asset)),
+                                      qpos.double(), qvel.double())
+            out[f"K3 {asset} E{e} err"] = cs.fk_err(
+                fk_kernel.fk_vel(sys_, qpos, qvel), ref)
+            out[f"K3 {asset} E{e} ms"] = cs.device_ms(
+                lambda: fk_kernel.launch_fk_vel(sys_, qpos, qvel), reps=50)
     out["env step ms"] = env_step_ms(envs, dev, cs)
-    ok = all(v <= cs.LAM_ATOL for k, v in out.items() if k.startswith("K1")
-             and k.endswith("err")) and out["K2 minv err"] <= cs.MINV_ATOL \
-        and out["K2 v_pred err"] <= cs.VPRED_ATOL
-    out["ok"] = ok
+    out["ok"] = all(v <= err_limit(cs, k) for k, v in out.items()
+                    if k.endswith(" err"))
     return out
+
+
+def err_limit(cs, key: str) -> float:
+    """chip_smoke's tolerance for the error ``key`` of ``time_tree``."""
+    if key.startswith("K1"):
+        return cs.LAM_ATOL
+    if key.startswith("K3"):
+        return cs.FK_ATOL
+    return cs.MINV_ATOL if "minv" in key else cs.VPRED_ATOL
 
 
 def env_step_ms(envs, dev, cs, warmup=5, steps=30) -> float:
@@ -135,7 +160,10 @@ def main() -> int:
     from cadm_tpu_torch.physics.rigid import dynamics as rdyn
 
     print(cs.card_line())
-    captured = cs.capture_main_path_pgs(envs, rdyn, torch.device("cuda"))
+    from cadm_tpu_torch.ops import fk_kernel
+
+    captured = cs.capture_main_path(envs, rdyn, fk_kernel,
+                                    torch.device("cuda"))[0]
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "main_path_pgs.pt")

@@ -12,6 +12,7 @@ import torch
 from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
 from cadm_tpu_torch.ops import fk_kernel, pgs
 from cadm_tpu_torch.physics.rigid import dynamics as rdyn
+from chip_smoke import f32_constants, smooth_state
 
 pytestmark = pytest.mark.cuda
 
@@ -84,7 +85,7 @@ def test_fk_vel_kernel_matches_plain_float64(dev, asset):
     """K3 (the FK-velocity walk alone) against its plain version in float64;
     its fields are the first part of K2's row, so they equal K2's."""
     sys_ = load_system(asset)
-    e = 257  # ragged against the 128-thread blocks
+    e = 257  # ragged against K3's blocks of 8 or 4 envs
     rng = np.random.RandomState(2)
     qpos = sys_.default_qpos() + rng.uniform(-0.1, 0.1, (e, sys_.nq))
     for j in range(sys_.nj):
@@ -106,6 +107,25 @@ def test_fk_vel_kernel_matches_plain_float64(dev, asset):
                             ones, ones, torch.ones(e, sys_.nu, device=dev))
     assert torch.equal(rows[:, :fk_kernel.fk_width(sys_)],
                        fk_kernel.launch_fk_vel(sys_, qpos, qvel))
+
+
+@pytest.mark.parametrize("asset", ASSETS)
+@pytest.mark.parametrize("e", [1, 5, 67, 257, 65536])
+def test_fk_vel_kernel_ragged_env_counts(dev, asset, e):
+    """K3 at env counts that leave a block part full (and at 65,536 envs)
+    against its plain version run in float64 on the constants the kernel's
+    table holds (float32)."""
+    sys_ = load_system(asset)
+    qpos, qvel = (torch.tensor(x, dtype=torch.float32, device=dev) for x in
+                  smooth_state(sys_, np.random.RandomState(e), e)[:2])
+    before = fk_kernel.fk_vel_launches
+    fkv = fk_kernel.fk_vel(sys_, qpos, qvel)
+    assert fk_kernel.fk_vel_launches == before + 1
+    ref = fk_kernel.fk_vel_plain(f32_constants(sys_), qpos.double(),
+                                 qvel.double())
+    for name in FK_FIELDS:
+        err = (getattr(fkv, name).double() - getattr(ref, name)).abs().max()
+        assert err.item() <= FK_ATOL, name
 
 
 def pgs_problem(dev, e, nc, seed):
