@@ -4,11 +4,12 @@ cadm_tpu/cli/presets.py).
 ``ExperimentConfig`` carries the reference's knobs for the model-based
 trainer; ``build(device)`` assembles env, model, planner and trainer on one
 device (the card unless the caller asks for the CPU). The port builds
-``trainer="mb"`` with ``model`` ∈ {cadm, vanilla}, one member or a PE-TS
-ensemble, on the five rigid families (half_cheetah, hopper, ant,
-cripple_ant, slim_humanoid). Still unported, each raising
-``NotImplementedError``: the PPO trainer, the stacked/rnn/grbal models,
-``normalize_env`` and the analytic envs (cartpole, pendulum).
+``trainer="mb"`` with ``model`` ∈ {vanilla, stacked, cadm, rnn} (one member
+or a PE-TS ensemble) or ``grbal`` (its net takes ``hidden[:3]``), on the
+five rigid families (half_cheetah, hopper, ant, cripple_ant,
+slim_humanoid). Still unported, each raising ``NotImplementedError``: the
+PPO trainer, ``normalize_env`` and the analytic envs (cartpole, pendulum;
+cartpole is the default env, as in the reference).
 """
 from __future__ import annotations
 
@@ -18,20 +19,23 @@ from typing import Optional, Tuple
 from cadm_tpu_torch.core.types import resolve_device
 from cadm_tpu_torch.envs import make
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
+from cadm_tpu_torch.models.grbal import GrBAL, GrBALConfig
+from cadm_tpu_torch.planners.grbal_mpc import GrBALPlanner
 from cadm_tpu_torch.planners.mpc import MPCPlanner, PlannerConfig
 from cadm_tpu_torch.train.mb_trainer import MBTrainer, TrainerConfig
 
-CONTEXT_OF_MODEL = {"vanilla": "none", "cadm": "encoder"}
-PORTED = ("trainer='mb'; model 'cadm'/'vanilla' with any ensemble size; "
-          "envs half_cheetah, hopper, ant, cripple_ant, slim_humanoid; "
-          "normalize_env=False")
+CONTEXT_OF_MODEL = {"vanilla": "none", "stacked": "stacked",
+                    "cadm": "encoder", "rnn": "rnn"}
+PORTED = ("trainer='mb'; model 'vanilla'/'stacked'/'cadm'/'rnn' with any "
+          "ensemble size, or 'grbal'; envs half_cheetah, hopper, ant, "
+          "cripple_ant, slim_humanoid; normalize_env=False")
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     trainer: str = "mb"
     # env
-    env: str = "half_cheetah"
+    env: str = "cartpole"             # unported: pass a rigid family
     n_envs: int = 16
     randomization: str = "discrete"   # paper scale sets | "continuous" bands
     normalize_env: bool = False       # the reference's NormalizedEnv: unported
@@ -40,7 +44,7 @@ class ExperimentConfig:
     terminate_unhealthy: Optional[bool] = None
     env_horizon: Optional[int] = None
     # model
-    model: str = "cadm"           # vanilla | cadm
+    model: str = "cadm"           # vanilla | stacked | cadm | rnn | grbal
     ensemble: int = 1             # >1 = PE-TS-style probabilistic ensemble
     # None = probabilistic heads iff ensemble > 1 (the PETS convention)
     probabilistic: Optional[bool] = None
@@ -91,8 +95,8 @@ class ExperimentConfig:
             raise ValueError(
                 f"n_envs/eval_envs must be >= 1, got {self.n_envs}/{self.eval_envs}"
             )
-        if self.trainer != "mb" or self.model not in CONTEXT_OF_MODEL \
-                or self.normalize_env:
+        if self.trainer != "mb" or self.normalize_env or (
+                self.model not in CONTEXT_OF_MODEL and self.model != "grbal"):
             raise NotImplementedError(
                 f"not ported: trainer={self.trainer!r} model={self.model!r} "
                 f"normalize_env={self.normalize_env} (ported: {PORTED})"
@@ -100,6 +104,8 @@ class ExperimentConfig:
         env = make(self.env, randomization=self.randomization, device=device,
                    terminate_unhealthy=self.terminate_unhealthy,
                    horizon=self.env_horizon)
+        if self.model == "grbal":
+            return self._build_grbal(env, device)
         model = Dynamics(
             DynamicsConfig(
                 obs_dim=env.obs_dim,
@@ -137,26 +143,59 @@ class ExperimentConfig:
             bad_transition_fn=env.bad_transition,
             obs_limit=env.bad_obs_limit,
         )
-        trainer = MBTrainer(
-            env, model, planner,
-            TrainerConfig(
-                n_envs=self.n_envs,
-                steps_per_itr=self.steps_per_itr,
-                n_itr=self.n_itr,
-                model_updates_per_itr=self.model_updates_per_itr,
-                batch_size=self.batch_size,
-                buffer_capacity=self.buffer_capacity,
-                eval_envs=self.eval_envs,
-                eval_modes=self.eval_modes,
-                eval_every=self.eval_every,
-                fit_protocol=self.fit_protocol,
-                max_epochs=self.max_epochs,
-                early_stop_patience=self.early_stop_patience,
-                early_stop_metric=self.early_stop_metric,
-                epoch_updates_cap=self.epoch_updates_cap,
-                symmetry_aug=self.symmetry_aug,
-            ),
+        trainer = MBTrainer(env, model, planner,
+                            self._trainer_config(self.symmetry_aug))
+        return env, model, planner, trainer
+
+    def _trainer_config(self, symmetry_aug: bool) -> TrainerConfig:
+        return TrainerConfig(
+            n_envs=self.n_envs,
+            steps_per_itr=self.steps_per_itr,
+            n_itr=self.n_itr,
+            model_updates_per_itr=self.model_updates_per_itr,
+            batch_size=self.batch_size,
+            buffer_capacity=self.buffer_capacity,
+            eval_envs=self.eval_envs,
+            eval_modes=self.eval_modes,
+            eval_every=self.eval_every,
+            fit_protocol=self.fit_protocol,
+            max_epochs=self.max_epochs,
+            early_stop_patience=self.early_stop_patience,
+            early_stop_metric=self.early_stop_metric,
+            epoch_updates_cap=self.epoch_updates_cap,
+            symmetry_aug=symmetry_aug,
         )
+
+    def _build_grbal(self, env, device):
+        """GrBAL as the reference builds it: a net of ``hidden[:3]``, its
+        planner without the ensemble knob, no symmetry augmentation."""
+        model = GrBAL(
+            GrBALConfig(
+                obs_dim=env.obs_dim,
+                act_dim=env.act_dim,
+                hidden=self.hidden[:3],
+                history_k=self.history_k,
+                future_m=self.future_m,
+                lr=self.lr,
+            ),
+            device=device,
+        )
+        planner = GrBALPlanner(
+            PlannerConfig(
+                kind=self.planner,
+                horizon=self.plan_horizon,
+                n_candidates=self.n_candidates,
+                cem_iters=self.cem_iters,
+                cem_elites=self.cem_elites,
+                warm_start=self.warm_start,
+            ),
+            model,
+            env.reward,
+            env.act_dim,
+            bad_transition_fn=env.bad_transition,
+            obs_limit=env.bad_obs_limit,
+        )
+        trainer = MBTrainer(env, model, planner, self._trainer_config(False))
         return env, model, planner, trainer
 
 

@@ -4,6 +4,8 @@ Examples:
   python -m cadm_tpu_torch.cli.run --preset halfcheetah_cadm_cem
   python -m cadm_tpu_torch.cli.run --preset cripple_ant_cadm_ensemble_cem \\
       --n-itr 2 --steps-per-itr 20 --env-horizon 10 --log-dir runs
+  python -m cadm_tpu_torch.cli.run --env half_cheetah --model grbal \\
+      --exp-name cheetah_grbal --checkpoint      # ... and later --resume
 
 Presets: halfcheetah_cadm_cem, hopper_cadm_cem, slim_humanoid_cadm_cem,
 ant_cadm_ensemble_cem, cripple_ant_cadm_ensemble_cem (the reference's
@@ -12,9 +14,15 @@ values).
 One flag per ``ExperimentConfig`` field overrides the preset; ``--device``
 (default ``cuda``) picks the card or, for tests, ``cpu``. Writes
 ``<log-dir>/<exp-name>/progress.csv`` (one row per outer iteration),
-``params.json`` and ``debug.log``. The reference's checkpoint, resume,
-trajectory-dump and mesh flags are not offered by the port (argparse
-rejects them).
+``params.json`` and ``debug.log``. ``--checkpoint`` saves the whole
+training state after every iteration to ``<log-dir>/<exp-name>/checkpoints``
+(the newest 3 kept); ``--resume`` restores the latest one there and goes on
+at the next iteration, so a long run can span several processes. A resumed
+process rewrites ``progress.csv`` with its own rows only, as the
+reference's logger does: keep each process's copy. ``--dump-trajs`` streams
+each iteration's transitions to ``trajectories.bin`` (``utils/trajsink.py``).
+The reference's mesh flags (``--dp``, ``--model-par``) are not offered
+(argparse rejects them).
 """
 from __future__ import annotations
 
@@ -26,7 +34,9 @@ import torch
 
 from cadm_tpu_torch.cli.presets import PRESETS, ExperimentConfig
 from cadm_tpu_torch.core.types import resolve_device
+from cadm_tpu_torch.utils.checkpoint import Checkpointer
 from cadm_tpu_torch.utils.logger import TabularLogger
+from cadm_tpu_torch.utils.trajsink import TrajectorySink
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +47,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", default="data")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
+    p.add_argument("--checkpoint", action="store_true",
+                   help="save the full training state after every iteration")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint in the experiment dir "
+                        "and continue")
+    p.add_argument("--dump-trajs", action="store_true",
+                   help="stream collected trajectories to the native async "
+                        "sink")
     # f.type is a string under `from __future__ import annotations`:
     # resolve the real types, unwrapping Optional/Tuple
     hints = typing.get_type_hints(ExperimentConfig)
@@ -87,8 +105,29 @@ def main(argv=None):
     logger.log(f"device: {device} ({name})")
 
     _, _, _, trainer = cfg.build(device)
+    ckpt = (Checkpointer(f"{logger.dir}/checkpoints", map_location=device)
+            if args.checkpoint or args.resume else None)
+    resume = None
+    if args.resume and ckpt.latest_step is not None:
+        resume = ckpt.restore()
+        logger.log(f"resumed full training state from checkpoint step "
+                   f"{ckpt.latest_step}")
+    sink = None
+    if args.dump_trajs:
+        if TrajectorySink.available():
+            sink = TrajectorySink(f"{logger.dir}/trajectories.bin")
+        else:
+            logger.log("native trajsink unavailable; --dump-trajs ignored")
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    _, history = trainer.train(gen, logger=logger)
+    try:
+        _, history = trainer.train(gen, logger=logger, checkpointer=ckpt,
+                                   traj_sink=sink, resume=resume)
+    finally:
+        if sink is not None:
+            sink.flush()
+            logger.log(f"trajectories.bin: {sink.written} records, "
+                       f"{sink.dropped} dropped")
+            sink.close()
     logger.log("done.")
     return history
 

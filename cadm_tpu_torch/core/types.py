@@ -108,24 +108,28 @@ class History:
     """Shift-register of the K most recent transitions for CaDM context.
 
     obs/dobs (E, K, obs_dim), act (E, K, act_dim), oldest first; valid
-    (E, K) is 1.0 where the slot holds a real transition. (The reference's
-    recurrent-encoder slot ``rnn_h`` comes with the ReBAL port.)
+    (E, K) is 1.0 where the slot holds a real transition. rnn_h (E, H) is
+    ReBAL's episode-recurrent encoder state: advanced once per env step by
+    ``Dynamics.push_history``, wiped with the rest on reset; H = 0 for every
+    other model.
     """
 
     obs: Tensor
     dobs: Tensor
     act: Tensor
     valid: Tensor
+    rnn_h: Tensor
 
     @staticmethod
     def zeros(n: int, k: int, obs_dim: int, act_dim: int,
-              device=None) -> "History":
+              device=None, rnn_hidden: int = 0) -> "History":
         z = lambda *s: torch.zeros(n, *s, device=device)  # noqa: E731
         return History(obs=z(k, obs_dim), dobs=z(k, obs_dim), act=z(k, act_dim),
-                       valid=z(k))
+                       valid=z(k), rnn_h=z(rnn_hidden))
 
     def push(self, obs: Tensor, dobs: Tensor, act: Tensor) -> "History":
-        """Push one transition per env, dropping the oldest."""
+        """Push one transition per env, dropping the oldest; ``rnn_h`` is
+        left alone (the model's ``push_history`` advances it)."""
 
         def shift(ring, new):
             return torch.cat([ring[:, 1:], new[:, None]], dim=1)
@@ -135,10 +139,14 @@ class History:
             dobs=shift(self.dobs, dobs),
             act=shift(self.act, act),
             valid=shift(self.valid, torch.ones_like(self.valid[:, 0])),
+            rnn_h=self.rnn_h,
         )
 
 
 def batched_history(model_cfg, n_envs: int, device=None) -> History:
-    """A zero History for ``n_envs`` envs sized for a model's config."""
+    """A zero History for ``n_envs`` envs sized for a model's config: an
+    ``rnn_h`` of ``rnn_hidden`` for ``context='rnn'``, zero-width else."""
+    rh = model_cfg.rnn_hidden if getattr(model_cfg, "context", "") == "rnn" \
+        else 0
     return History.zeros(n_envs, model_cfg.history_k, model_cfg.obs_dim,
-                         model_cfg.act_dim, device=device)
+                         model_cfg.act_dim, device=device, rnn_hidden=rh)

@@ -1,11 +1,20 @@
 """Context-aware dynamics model (counterpart of cadm_tpu/models/dynamics.py).
 
-The CaDM context encoder (``context='encoder'``: past-K (Δobs, action)
-window → latent z) and the plain model (``context='none'``), each with
-member-stacked forward and backward heads predicting normalized Δobs; the
-joint loss L_fwd + β·L_bwd over M future steps sharing one z; and the
-optimizer step, ``clip_by_global_norm(grad_clip)`` then Adam(lr) exactly as
-the reference's optax chain.
+The model zoo of one class, by ``context``:
+
+- ``'none'``: the plain model (vanilla, or PE-TS with members);
+- ``'stacked'``: the baseline that feeds the normalized, valid-masked flat
+  past-K (Δobs, action) window to the heads as their context;
+- ``'encoder'``: CaDM, an MLP encoder of that window → latent z;
+- ``'rnn'``: ReBAL, a GRU over (Δobs, action) pairs projected to z. Training
+  runs it over each sampled K-window from h0 = 0; acting carries the hidden
+  state across the whole episode in ``History.rnn_h``.
+
+Member-stacked forward heads predict normalized Δobs (CaDM and ReBAL add a
+backward head); the joint loss is L_fwd + β·L_bwd over M future steps
+sharing one context; the optimizer step (``clip_adam_step``) is
+``clip_by_global_norm(grad_clip)`` then Adam(lr), exactly as the
+reference's optax chain.
 
 ``n_members > 1`` with ``probabilistic`` is the PE-TS ensemble: mean and
 log-variance heads, the log-variance kept inside learned soft bounds
@@ -30,10 +39,18 @@ from cadm_tpu_torch.core.types import (
 )
 import torch.nn.functional as F
 
-from cadm_tpu_torch.models.nets import MLP, linear, mlp_apply, mlp_init, swish
+from cadm_tpu_torch.models.nets import (
+    MLP,
+    gru_apply,
+    gru_init,
+    linear,
+    mlp_apply,
+    mlp_init,
+    swish,
+)
 
 Tensor = torch.Tensor
-CONTEXTS = ("none", "encoder")
+CONTEXTS = ("none", "stacked", "encoder", "rnn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,8 +60,9 @@ class DynamicsConfig:
     hidden: Tuple[int, ...] = (200, 200, 200, 200)
     n_members: int = 1
     probabilistic: bool = False
-    context: str = "none"  # 'none' | 'encoder'
+    context: str = "none"  # 'none' | 'stacked' | 'encoder' | 'rnn'
     z_dim: int = 10
+    rnn_hidden: int = 64
     history_k: int = 10
     future_m: int = 10
     encoder_hidden: Tuple[int, ...] = (256, 128)
@@ -68,7 +86,9 @@ class DynamicsConfig:
 
     @property
     def context_dim(self) -> int:
-        return self.z_dim if self.context == "encoder" else 0
+        if self.context in ("encoder", "rnn"):
+            return self.z_dim
+        return self.hist_dim if self.context == "stacked" else 0
 
     @property
     def head_in_dim(self) -> int:
@@ -111,6 +131,44 @@ class AdamState:
                          tree_map(torch.zeros_like, params))
 
 
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def clip_adam_step(params, opt: AdamState, grads: list, lr: float,
+                   grad_clip: float):
+    """One step of optax's ``chain(clip_by_global_norm(grad_clip),
+    adam(lr))`` → (new params, new AdamState); ``grads`` in
+    ``tree_leaves(params)`` order.
+
+    The clip scales every gradient by grad_clip/‖g‖ only when the global
+    norm ‖g‖ over all leaves is ≥ grad_clip (no epsilon is added, unlike
+    ``torch.nn.utils.clip_grad_norm_``). Adam: μ ← (1−b1)·g + b1·μ,
+    ν ← (1−b2)·g² + b2·ν, p ← p − lr·μ̂/(√ν̂ + eps) with the bias
+    corrections of step count+1. Returns new tensors.
+    """
+    b1, b2 = ADAM_B1, ADAM_B2
+    leaves = [p.detach() for p in tree_leaves(params)]
+    with torch.no_grad():
+        g_norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
+        coef = torch.where(g_norm < grad_clip, 1.0, grad_clip / g_norm)
+        grads = torch._foreach_mul(grads, coef)
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                                torch._foreach_mul(tree_leaves(opt.mu), b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+            torch._foreach_mul(tree_leaves(opt.nu), b2))
+        count = opt.count + 1
+        mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
+        nu_hat = torch._foreach_div(nu, 1 - b2 ** count)
+        step = torch._foreach_div(
+            mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS))
+        new = torch._foreach_add(leaves, torch._foreach_mul(step, -lr))
+    return (tree_unflatten(params, new),
+            AdamState(count, tree_unflatten(params, mu),
+                      tree_unflatten(params, nu)))
+
+
 @dataclasses.dataclass
 class DynamicsState:
     """Parameters (a dict of MLPs), normalization statistics, optimizer
@@ -144,14 +202,10 @@ class SegmentBatch:
 class Dynamics:
     """Functional dynamics-model API shared by planners and trainers."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
-
     def __init__(self, config: DynamicsConfig, device="cuda"):
         if config.context not in CONTEXTS or config.n_members < 1:
-            raise NotImplementedError(
-                f"the port supports context {CONTEXTS} with n_members >= 1 "
-                f"(deterministic or probabilistic), got {config}"
-            )
+            raise ValueError(f"context must be one of {CONTEXTS} and "
+                             f"n_members >= 1, got {config}")
         self.cfg = config
         self.device = resolve_device(device)
 
@@ -163,9 +217,14 @@ class Dynamics:
             params["encoder"] = mlp_init(
                 gen, [c.hist_dim, *c.encoder_hidden, c.z_dim]
             )
+        elif c.context == "rnn":
+            params["encoder"] = {
+                "gru": gru_init(gen, c.obs_dim + c.act_dim, c.rnn_hidden),
+                "proj": mlp_init(gen, [c.rnn_hidden, c.z_dim]),
+            }
         head_sizes = [c.head_in_dim, *c.hidden, c.head_out_dim]
         params["fwd"] = mlp_init(gen, head_sizes, c.n_members)
-        if c.context == "encoder" and c.backward:
+        if c.context in ("encoder", "rnn") and c.backward:
             params["bwd"] = mlp_init(gen, head_sizes, c.n_members)
         if c.probabilistic:
             params["max_logvar"] = torch.full((c.obs_dim,), 0.5,
@@ -186,32 +245,54 @@ class Dynamics:
     # ---------------------------------------------------------- context --
     def context_from_history(self, params: dict, norm: NormStats,
                              hists: History) -> Tensor:
-        """Per-env context (E, context_dim) from a batched History."""
+        """Per-env context (E, context_dim) from a batched History; for
+        ``context='rnn'`` the projection of the episode-recurrent
+        ``hists.rnn_h``, not a re-encoding of the window."""
+        if self.cfg.context == "rnn":
+            return mlp_apply(params["encoder"]["proj"], hists.rnn_h)
         return self.get_context(params, norm, hists.dobs, hists.act,
                                 hists.valid)
 
     def push_history(self, params: dict, norm: NormStats, hists: History,
                      obs: Tensor, dobs: Tensor, act: Tensor) -> History:
-        """Advance the batched histories by one transition."""
-        return hists.push(obs, dobs, act)
+        """Advance the batched histories by one transition; for
+        ``context='rnn'`` also one GRU step of ``rnn_h`` on the normalized
+        (Δobs, action) with the current norm. Callers wipe it on done."""
+        pushed = hists.push(obs, dobs, act)
+        if self.cfg.context != "rnn":
+            return pushed
+        x = torch.cat([(dobs - norm.dobs_mean) / norm.dobs_std,
+                       (act - norm.act_mean) / norm.act_std], dim=-1)
+        return dataclasses.replace(
+            pushed, rnn_h=gru_apply(params["encoder"]["gru"], hists.rnn_h, x))
 
     def get_context(self, params: dict, norm: NormStats, hist_dobs: Tensor,
                     hist_act: Tensor, hist_valid: Tensor) -> Tensor:
         """Latent context from the past-K window, shape (..., context_dim).
 
-        The encoder input is [Δobs·v flattened over K, act·v flattened over
-        K] (not interleaved). For ``context='none'`` returns a zero-width
-        tensor so downstream concatenation needs no branch.
+        The encoder and stacked input is [Δobs·v flattened over K, act·v
+        flattened over K] (not interleaved). ``context='rnn'`` runs the GRU
+        over the window's (Δobs·v, act·v) from h0 = 0, keeping h where
+        ``valid`` is 0. For ``context='none'`` returns a zero-width tensor
+        so downstream concatenation needs no branch.
         """
+        c = self.cfg
         nd = (hist_dobs - norm.dobs_mean) / norm.dobs_std
         na = (hist_act - norm.act_mean) / norm.act_std
         v = hist_valid[..., None]
+        if c.context == "rnn":
+            x = torch.cat([nd * v, na * v], dim=-1)          # (..., K, d)
+            h = x.new_zeros(*x.shape[:-2], c.rnn_hidden)
+            for t in range(x.shape[-2]):
+                h_new = gru_apply(params["encoder"]["gru"], h, x[..., t, :])
+                h = torch.where(v[..., t, :] > 0, h_new, h)
+            return mlp_apply(params["encoder"]["proj"], h)
         flat = torch.cat(
             [(nd * v).flatten(-2), (na * v).flatten(-2)], dim=-1
         )
-        if self.cfg.context == "encoder":
+        if c.context == "encoder":
             return mlp_apply(params["encoder"], flat)
-        return flat[..., :0]
+        return flat if c.context == "stacked" else flat[..., :0]
 
     # ---------------------------------------------------------- predict --
     def _head_out(self, head_params: MLP, params: dict, norm: NormStats,
@@ -320,47 +401,19 @@ class Dynamics:
     # ----------------------------------------------------------- update --
     def update(self, state: DynamicsState, batch: SegmentBatch
                ) -> Tuple[DynamicsState, dict]:
-        """One step of clip_by_global_norm(grad_clip) → Adam(lr), as optax.
-
-        The clip scales every gradient by grad_clip/‖g‖ only when the global
-        norm ‖g‖ over all leaves is ≥ grad_clip (no epsilon is added, unlike
-        ``torch.nn.utils.clip_grad_norm_``). Adam: μ ← (1−b1)·g + b1·μ,
-        ν ← (1−b2)·g² + b2·ν, p ← p − lr·μ̂/(√ν̂ + eps) with the bias
-        corrections of step count+1. Returns a new state of new tensors.
-        """
-        c, opt = self.cfg, state.opt_state
-        leaves = tree_leaves(state.params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
+        """One ``clip_adam_step`` on the loss of ``batch``. Returns a new
+        state of new tensors."""
+        live = [p.detach().requires_grad_(True)
+                for p in tree_leaves(state.params)]
         with torch.enable_grad():
             loss, metrics = self.loss(tree_unflatten(state.params, live),
                                       state.norm, batch)
             grads = torch.autograd.grad(loss, live)
-        with torch.no_grad():
-            g_norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
-            coef = torch.where(g_norm < c.grad_clip, 1.0, c.grad_clip / g_norm)
-            grads = torch._foreach_mul(grads, coef)
-            mu = torch._foreach_add(
-                torch._foreach_mul(grads, 1 - self.b1),
-                torch._foreach_mul(tree_leaves(opt.mu), self.b1))
-            nu = torch._foreach_add(
-                torch._foreach_mul(torch._foreach_mul(grads, grads),
-                                   1 - self.b2),
-                torch._foreach_mul(tree_leaves(opt.nu), self.b2))
-            count = opt.count + 1
-            mu_hat = torch._foreach_div(mu, 1 - self.b1 ** count)
-            nu_hat = torch._foreach_div(nu, 1 - self.b2 ** count)
-            step = torch._foreach_div(
-                mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat),
-                                           self.eps))
-            new = torch._foreach_add(leaves, torch._foreach_mul(step, -c.lr))
-        like = state.params
+        params, opt = clip_adam_step(state.params, state.opt_state,
+                                     list(grads), self.cfg.lr,
+                                     self.cfg.grad_clip)
         return (
-            DynamicsState(
-                params=tree_unflatten(like, new), norm=state.norm,
-                opt_state=AdamState(count, tree_unflatten(like, mu),
-                                    tree_unflatten(like, nu)),
-                updates=state.updates + 1,
-            ),
+            DynamicsState(params=params, norm=state.norm, opt_state=opt,
+                          updates=state.updates + 1),
             {k: v.detach() for k, v in metrics.items()},
         )

@@ -1,4 +1,5 @@
-"""Minimal MLP building blocks (counterpart of cadm_tpu/models/nets.py).
+"""Minimal MLP and GRU building blocks (counterpart of
+cadm_tpu/models/nets.py).
 
 Parameters are plain lists of ``{"w": (in, out), "b": (out,)}`` tensors in
 the reference's layout (weights are (in, out), not ``nn.Linear``'s
@@ -42,6 +43,36 @@ def mlp_init(
             "b": torch.zeros(*lead, n_out, device=gen.device),
         })
     return params
+
+
+def gru_init(gen: torch.Generator, in_dim: int, hidden: int) -> dict:
+    """GRU cell parameters in the reference's layout: gates ``z`` (update),
+    ``r`` (reset) and ``h`` (candidate), each ``{"wx": (in, H), "wh": (H,
+    H), "b": (H,)}``; truncated-normal (±2σ) weights with std
+    1/(2·sqrt(fan_in)), zero biases."""
+
+    def mat(n_in):
+        w = torch.empty(n_in, hidden, device=gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return w / (2.0 * math.sqrt(n_in))
+
+    return {g: {"wx": mat(in_dim), "wh": mat(hidden),
+                "b": torch.zeros(hidden, device=gen.device)}
+            for g in ("z", "r", "h")}
+
+
+def gru_apply(params: dict, h: Tensor, x: Tensor) -> Tensor:
+    """One GRU step on rows (..., H) and (..., in):
+    h' = (1−z)·h + z·tanh(x·Wx_h + (r·h)·Wh_h + b_h)."""
+
+    def gate(g, a, b):
+        p = params[g]
+        return linear({"w": p["wx"], "b": p["b"]}, a) + b @ p["wh"]
+
+    z = torch.sigmoid(gate("z", x, h))
+    r = torch.sigmoid(gate("r", x, h))
+    cand = torch.tanh(gate("h", x, r * h))
+    return (1.0 - z) * h + z * cand
 
 
 def linear(layer: dict, x: Tensor) -> Tensor:

@@ -12,6 +12,11 @@ time / updates, ``lax.cond`` over skipped epochs); here they are Python loops
 over batched device work, and the epoch loop stops at the early-stop epoch
 instead of running the skipped ones. The metrics and their keys are the
 reference's.
+
+``train`` can save the whole training state after every iteration
+(``checkpoint_payload``) and resume from it at the next iteration with the
+same metrics as an uninterrupted run, and can hand each iteration's newly
+collected transitions to a ``TrajectorySink``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from cadm_tpu_torch.models.dynamics import (
 )
 from cadm_tpu_torch.planners.mpc import MPCPlanner
 from cadm_tpu_torch.train.buffer import ReplayBuffer, masked_mean_std
+from cadm_tpu_torch.utils.checkpoint import from_plain, to_plain
 
 Tensor = torch.Tensor
 Indices = Tuple[Tensor, Tensor]
@@ -261,13 +267,15 @@ class MBTrainer:
     def _valid_metrics(self, buffer, valid_idx: List[Indices],
                        dyn_state: DynamicsState) -> Tuple[Tensor, Tensor]:
         """(mean valid loss, mean forward-mean MSE) over the held-out
-        minibatches, each weighted by its own Σvalid."""
+        minibatches, each weighted by its own Σvalid. GrBAL's loss reports
+        no forward MSE: NaN then, as in the reference (so an early stop on
+        ``fwd_mse`` never improves for it)."""
         losses, mses = [], []
         for idx in valid_idx:
             loss, m = self.model.loss(dyn_state.params, dyn_state.norm,
                                       self._sample(buffer, idx))
             losses.append(loss)
-            mses.append(m["fwd_mean_mse"])
+            mses.append(m.get("fwd_mean_mse", loss.new_tensor(math.nan)))
         return torch.stack(losses).mean(), torch.stack(mses).mean()
 
     def _train_step(self, buffer, gen, dyn_state):
@@ -387,19 +395,52 @@ class MBTrainer:
             alive = alive * (1.0 - done.float())
         return ret
 
+    # ------------------------------------------------------- checkpoint --
+    @staticmethod
+    def checkpoint_payload(env_states, hists, buffer, dyn_state,
+                           gen: torch.Generator, itr: int) -> dict:
+        """The whole training state at the end of iteration ``itr``:
+        resuming from it reproduces the metrics of an uninterrupted run.
+        The CEM warm-start plan is made anew by every collect, so it is no
+        state across iterations."""
+        return {"state": dyn_state, "buffer": buffer, "env_states": env_states,
+                "hists": hists, "rng": gen.get_state(), "itr": itr}
+
     # ------------------------------------------------------------ train --
-    def train(self, gen: torch.Generator, logger=None):
+    def train(self, gen: torch.Generator, logger=None, checkpointer=None,
+              traj_sink=None, start_itr: int = 0, initial_dyn_state=None,
+              resume: Optional[dict] = None):
         """Run the outer loop → (final model state, list of metric rows).
 
         Each row holds ``itr``, the collect metrics, the fit metrics and,
         on evaluating iterations, the mean and population std of the eval
         returns per mode, in the reference's key order.
+
+        ``checkpointer`` saves ``checkpoint_payload`` after every
+        iteration. ``resume`` is such a payload (as saved, or plain from
+        ``Checkpointer.restore``): the run goes on at its ``itr`` + 1 with
+        its state and ``gen``'s saved state. ``start_itr`` and
+        ``initial_dyn_state`` are the weaker warm start: only the model is
+        given, the ring is collected anew, and iteration 0 plans instead of
+        acting at random. ``traj_sink`` receives ``itr{n}/obs|act|next_obs``
+        of the steps just collected, each (n_envs, steps_per_itr, dim).
         """
         cfg = self.cfg
         env_states, hists, buffer, dyn_state = self.init(gen)
+        if resume is not None:
+            resume = to_plain(resume)
+            env_states, hists, buffer, dyn_state = from_plain(
+                (env_states, hists, buffer, dyn_state),
+                [resume[k] for k in ("env_states", "hists", "buffer",
+                                     "state")])
+            gen.set_state(resume["rng"].cpu())
+            start_itr = int(resume["itr"]) + 1
+        elif initial_dyn_state is not None:
+            dyn_state = initial_dyn_state
         history = []
-        for itr in range(cfg.n_itr):
-            use_random = cfg.random_first_itr and itr == 0
+        for itr in range(start_itr, cfg.n_itr):
+            use_random = (cfg.random_first_itr and itr == 0
+                          and initial_dyn_state is None)
             env_states, hists, buffer, col_metrics = self._collect(
                 gen, env_states, hists, buffer, dyn_state, use_random)
             dyn_state, fit_metrics = self._fit(gen, buffer, dyn_state)
@@ -419,4 +460,13 @@ class MBTrainer:
                 for k, v in metrics.items():
                     logger.logkv(k, v)
                 logger.dumpkvs()
+            if checkpointer is not None:
+                checkpointer.save(itr, self.checkpoint_payload(
+                    env_states, hists, buffer, dyn_state, gen, itr))
+            if traj_sink is not None:
+                cols = torch.arange(buffer.ptr - cfg.steps_per_itr, buffer.ptr,
+                                    device=buffer.obs.device) % buffer.capacity
+                for name in ("obs", "act", "next_obs"):
+                    traj_sink.append(f"itr{itr}/{name}",
+                                     getattr(buffer, name)[:, cols].cpu().numpy())
         return dyn_state, history

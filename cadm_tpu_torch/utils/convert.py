@@ -4,7 +4,9 @@ Both packages keep an MLP layer as ``{"w": (in, out), "b": (out,)}`` and the
 member-stacked heads as ``params["fwd"]``/``params["bwd"]`` lists of
 ``{"w": (n_members, in, out), "b": (n_members, out)}`` (a probabilistic
 ensemble adds the ``max_logvar``/``min_logvar`` vectors), so conversion is a
-dtype/device copy of every leaf, no transposes. The Adam moments of optax's
+dtype/device copy of every leaf, no transposes. Nested dicts come across as
+they are: ReBAL's encoder ``{"gru": {"z"|"r"|"h": {"wx", "wh", "b"}},
+"proj": [...]}`` and GrBAL's ``{"net": [...]}``. The Adam moments of optax's
 ``ScaleByAdamState`` are trees of the same shape. Pass numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``); this module does not import jax.
 """

@@ -30,24 +30,36 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    and no other device op;
 5. a toy-width slice (plan → env step, 3 control steps) on the card against
    the same slice on the CPU (plain versions), same weights/states/noise,
-   for ``halfcheetah_cadm_cem`` and for ``cripple_ant_cadm_ensemble_cem``
-   (5 probabilistic members, TS1, the same block permutations on both);
-6. a toy-width fit of both presets, 20 model updates on the card against the
-   same 20 on the CPU: same starting weights, same segment batches;
+   for ``halfcheetah_cadm_cem``, for ``cripple_ant_cadm_ensemble_cem``
+   (5 probabilistic members, TS1, the same block permutations on both) and
+   for the cheetah's three baselines (stacked, ReBAL, GrBAL);
+6. a toy-width fit of the same five, 20 model updates on the card against
+   the same 20 on the CPU: same starting weights, same segment batches;
 7. the training path at full width through the CLI
    (``cadm_tpu_torch.cli.run.main``), cut in depth only: 2 iterations
    (random collect, then planned) of 20 control steps, 10-step episodes, for
    ``halfcheetah_cadm_cem`` (2048 envs, 4×200 heads, a 20000-column ring,
-   batch 256, CEM 200×30×5) and ``cripple_ant_cadm_ensemble_cem`` (1024
-   envs, 5 members, the same ring, batch and CEM, TS1). Checks the log, the
-   fit metrics (``logvar_bound_penalty`` of the ensemble included), the
-   episode counts and K1/K2 launches = frame_skip × every control step;
-8. the acting path at full width (``trainer.evaluate``) for
+   batch 256, CEM 200×30×5), ``cripple_ant_cadm_ensemble_cem`` (1024
+   envs, 5 members, the same ring, batch and CEM, TS1) and the cheetah's
+   stacked, ReBAL and GrBAL at the result matrix's configuration (256 envs,
+   CEM 256×30×5 warm-started, an 8000-column ring, batch 256, eval 32 envs
+   every 3 iterations; GrBAL's net 3×200). Checks the log, the fit metrics
+   (``logvar_bound_penalty`` of the ensemble included; GrBAL's valid MSE
+   NaN, as the reference's), the episode counts and K1/K2 launches =
+   frame_skip × every control step;
+8. resume: the matrix's cheetah CaDM for 3 iterations with ``--checkpoint``,
+   then ``--resume`` from step 1 in a new process state (trainer,
+   generator): its itr 2 row equals the uninterrupted run's bit for bit;
+   the checkpoint's size and save/restore seconds;
+9. the trajectory dump: one iteration of the same with ``--dump-trajs``;
+   ``read_trajfile`` gives back itr0/obs|act|next_obs equal to the ring's
+   columns, 0 records dropped;
+10. the acting path at full width (``trainer.evaluate``) for
    ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2: cheetah at
    2048 envs, slim_humanoid and hopper at 512, with both kernels' launch
    counts checked against steps × frame_skip.
 
-Each path of phases 7 and 8 sets the launch counts to 0 before it runs and
+Each path of phases 7–10 sets the launch counts to 0 before it runs and
 reads them after.
 
 The last three lines are a JSON object describing the kernels (with each
@@ -77,7 +89,7 @@ SEED = 0
 E = 2048  # envs for the kernel checks (the preset's batch)
 FK_VEL_ENVS = (E, 65536)  # K3's random states: the preset batch, and one
 # large enough that the bytes, not the launch, set its bound
-SLICE_HORIZON = 3  # control steps per eval mode in phase 8
+SLICE_HORIZON = 3  # control steps per eval mode in phase 10
 # tolerances: λ 1e-4 (the reference's own for its PGS kernel); M⁻¹ 5e-5,
 # v_pred 5e-4 (its fused-kernel tolerances); FK fields 1e-5
 LAM_ATOL, MINV_ATOL, VPRED_ATOL, FK_ATOL = 1e-4, 5e-5, 5e-4, 1e-5
@@ -109,12 +121,28 @@ TRAIN_KEYS = [
     "eval/return_mode2", "eval/return_mode2_std",
 ]
 TRAIN_DEPTH = ["--n-itr", "2", "--steps-per-itr", "20", "--env-horizon", "10"]
+# The cheetah's row of the result matrix (RESULTS.md:14-16 for the
+# baselines): FAMILY_BASE["half_cheetah"] of scripts/run_matrix.py:56-61 and
+# its MODEL_VARIANTS (:103, :155-157), which run_matrix puts on a bare
+# ExperimentConfig with eval modes 0, 1, 2. Copied, not imported (that
+# script imports the JAX package). The model widths are the defaults:
+# heads 4×200 (GrBAL's net hidden[:3]), z 10, rnn_hidden 64, K 10.
+MATRIX_CHEETAH = dict(
+    env="half_cheetah", planner="cem", n_candidates=256, plan_horizon=30,
+    n_envs=256, steps_per_itr=500, n_itr=16, buffer_capacity=8000,
+    batch_size=256, eval_envs=32, warm_start=True, fit_protocol="epochs",
+    eval_every=3, eval_modes=(0, 1, 2))
+MATRIX_MODELS = {"cadm": dict(model="cadm", ensemble=1),
+                 "stacked": dict(model="stacked", ensemble=1),
+                 "rebal": dict(model="rnn", ensemble=1),
+                 "grbal": dict(model="grbal", ensemble=1)}
+BASELINES = ("stacked", "rebal", "grbal")
 # each System's main path and the batch its preset runs: K1's and K2's
 # inputs are captured there (phase 2)
 MAIN_PATH_SYSTEMS = (("half_cheetah", 2048), ("hopper", 512), ("ant", 1024),
                      ("cripple_ant", 1024), ("slim_humanoid", 512))
 # the training paths (phase 7) and the acting paths with their env counts
-# (phase 8); phases 5 and 6 run the training presets at toy width
+# (phase 10); phases 5 and 6 run the training presets at toy width
 TRAIN_PRESETS = ("halfcheetah_cadm_cem", "cripple_ant_cadm_ensemble_cem")
 ACT_PRESETS = (("halfcheetah_cadm_cem", 2048), ("slim_humanoid_cadm_cem", 512),
                ("hopper_cadm_cem", 512))
@@ -155,20 +183,46 @@ def device_ops(fn, reps: int = 1):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int = 20, ops_per_call: int = 1) -> float:
-    """Mean device time in ms of one call of ``fn``, which runs
-    ``ops_per_call`` device ops: unlike ``cuda_ms`` it leaves out the gaps
-    while the host launches. The profiler drops events now and then, so a
-    profile that did not record every op of every call is taken again."""
-    want = reps * ops_per_call
-    for _ in range(3):
-        ops = device_ops(fn, reps)
-        seen = sum(n for _, n, _ in ops)
-        if seen == want:
-            return sum(t for _, _, t in ops) / reps / 1e3
-    raise AssertionError(f"torch.profiler recorded {seen} device ops, not "
-                         f"{want} ({reps} calls × {ops_per_call}), in 3 "
-                         f"profiles")
+def device_ms(fn, reps: int = 20, profiles: int = 5) -> float:
+    """Mean device time in ms of one call of ``fn``, which runs one device
+    op: unlike ``cuda_ms`` it leaves out the gaps while the host launches.
+    The profiler may drop some of a profile's events (up to half of them on
+    some H100 hosts), so the mean is taken over the launches it did record,
+    and profiles are added until ``reps`` launches are recorded or
+    ``profiles`` were taken. If none recorded any, the CUDA-event time of
+    back-to-back calls stands in, and a line says so."""
+    names, seen, total_us = set(), 0, 0.0
+    for _ in range(profiles):
+        for name, n, t in device_ops(fn, reps):
+            names.add(name)
+            seen += n
+            total_us += t
+        if seen >= reps:
+            break
+    if len(names) > 1:
+        raise AssertionError(f"one call ran more than one kind of device op: "
+                             f"{sorted(names)}")
+    if seen == 0:
+        print(f"torch.profiler recorded no device op in {profiles} profiles "
+              f"of {reps} calls: timing back-to-back calls with CUDA events")
+        return cuda_ms(fn, reps)
+    return total_us / seen / 1e3
+
+
+def only_kernel(fn, kernel: str, what: str, reps: int = 10):
+    """Check that each call of ``fn`` runs one device op, the kernel
+    ``kernel``: a profile of ``reps`` calls records that kernel and nothing
+    else, at most ``reps`` times (the profiler may drop events, so fewer is
+    allowed). A profile that recorded no op at all is taken again, up to 5
+    times."""
+    for _ in range(5):
+        ops = [(name, n) for name, n, _ in device_ops(fn, reps)]
+        if ops:
+            break
+    print(f"{what} ({reps} calls): {ops}")
+    if (len(ops) != 1 or kernel not in ops[0][0]
+            or not 1 <= ops[0][1] <= reps):
+        raise AssertionError(f"{what} ran {ops}, not one {kernel} a call")
 
 
 def card_line() -> str:
@@ -468,13 +522,8 @@ def check_full_dyn(fk_kernel, load_system, ASSETS, dev):
         args = [torch.tensor(x, dtype=torch.float32, device=dev)
                 for x in smooth_state(sys_, rng, E)]
         r = full_dyn_case(fk_kernel, sys_, args, asset)
-        ops = [(name, n) for name, n, _ in
-               device_ops(lambda: fk_kernel.full_dyn(sys_, *args))]
-        print(f"K2 full_dyn {asset}: device ops of one full_dyn call: {ops}")
-        if len(ops) != 1 or "full_dyn_kernel" not in ops[0][0] \
-                or ops[0][1] != 1:
-            raise AssertionError(f"full_dyn on the card ran {ops}, not "
-                                 f"exactly one full_dyn_kernel")
+        only_kernel(lambda: fk_kernel.full_dyn(sys_, *args), "full_dyn_kernel",
+                    f"K2 full_dyn {asset}: device ops of one full_dyn call")
         results.append(dict(r, asset=asset))
     bad = [r for r in results if not full_dyn_ok(r)]
     if bad:
@@ -538,11 +587,8 @@ def check_fk_vel(fk_kernel, load_system, ASSETS, dev):
                                 wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by,
                                 share=bound_ms / ms))
-        ops = [(name, n) for name, n, _ in device_ops(launch)]
-        print(f"K3 fk_vel {asset}: device ops of one launch_fk_vel: {ops}")
-        if len(ops) != 1 or "fk_vel_kernel" not in ops[0][0] or ops[0][1] != 1:
-            raise AssertionError(f"launch_fk_vel on the card ran {ops}, not "
-                                 f"exactly one fk_vel_kernel")
+        only_kernel(launch, "fk_vel_kernel",
+                    f"K3 fk_vel {asset}: device ops of one launch_fk_vel")
     bad = [r for r in results if not (r["err"] <= FK_ATOL and r["same"])]
     if bad:
         raise AssertionError(f"K3 disagrees with its plain version or with "
@@ -580,10 +626,11 @@ TOY = dict(hidden=(32, 32), n_candidates=16, plan_horizon=5, cem_iters=2,
            cem_elites=4, n_envs=4, eval_envs=4)
 
 
-def check_toy_slice(PRESETS, preset="halfcheetah_cadm_cem"):
+def check_toy_slice(PRESETS, preset="halfcheetah_cadm_cem", **override):
     """The toy slice on the card against the CPU: same weights, states, CEM
-    ε and (for an ensemble) the same TS1 block permutations."""
-    cfg = dataclasses.replace(PRESETS[preset], **TOY)
+    ε and (for an ensemble) the same TS1 block permutations. ``override``
+    replaces config fields (e.g. ``model``)."""
+    cfg = dataclasses.replace(PRESETS[preset], **TOY, **override)
     env, model, planner, _ = cfg.build("cpu")
     gen = torch.Generator().manual_seed(SEED)
     dyn = model.init_state(gen)
@@ -601,29 +648,32 @@ def check_toy_slice(PRESETS, preset="halfcheetah_cadm_cem"):
     gpu = run_toy_slice(cfg, "cuda", dyn, start, noise, members, steps)
     err_a = max((a - b).abs().max().item() for (a, _), (b, _) in zip(cpu, gpu))
     err_o = max((a - b).abs().max().item() for (_, a), (_, b) in zip(cpu, gpu))
-    print(f"toy slice {preset} ({cfg.env}, {model.cfg.n_members} member(s), "
+    print(f"toy slice {preset} ({cfg.env}, model {cfg.model}, "
+          f"{model.cfg.n_members} member(s), "
           f"{cfg.ensemble_eval}) card vs cpu, {steps} control steps: "
           f"max_abs_err actions {err_a:.3e}, obs {err_o:.3e} (atol "
           f"{SLICE_ATOL})")
     if not (err_a <= SLICE_ATOL and err_o <= SLICE_ATOL):
-        raise AssertionError(f"toy slice {preset} on the card disagrees "
-                             f"with the CPU")
+        raise AssertionError(f"toy slice {preset} {cfg.model} on the card "
+                             f"disagrees with the CPU")
 
 
 # ---------------------------------------------------- phase 6: toy fit ----
 def check_toy_fit(PRESETS, preset="halfcheetah_cadm_cem",
-                  devices=("cpu", "cuda")):
+                  devices=("cpu", "cuda"), **override):
     """20 updates on the card against the same 20 on the CPU.
 
     A random collect on the CPU fills a toy ring; 20 train minibatches'
     indices are drawn once there. Each device gets a copy of the ring and of
     the starting weights, refreshes the norm statistics and takes the 20
-    updates on the segments those indices gather.
+    updates on the segments those indices gather. ``override`` replaces
+    config fields (e.g. ``model``).
     """
     from cadm_tpu_torch.core.types import tree_leaves, tree_map
 
     cfg = dataclasses.replace(PRESETS[preset], **TOY, batch_size=16,
-                              buffer_capacity=64, steps_per_itr=40)
+                              buffer_capacity=64, steps_per_itr=40,
+                              **override)
     _, _, _, trainer = cfg.build("cpu")
     gen = torch.Generator().manual_seed(SEED)
     states, hists, buf, dyn = trainer.init(gen)
@@ -647,14 +697,15 @@ def check_toy_fit(PRESETS, preset="halfcheetah_cadm_cem",
     (p_cpu, l_cpu), (p_gpu, l_gpu) = runs
     err_p = max((a - b.cpu()).abs().max().item() for a, b in zip(p_cpu, p_gpu))
     err_l = float(np.max(np.abs(l_cpu - l_gpu) / np.abs(l_cpu)))
-    print(f"toy fit {preset} card vs cpu, {FIT_STEPS} updates (heads "
+    print(f"toy fit {preset} model {cfg.model} card vs cpu, {FIT_STEPS} "
+          f"updates (heads "
           f"{cfg.hidden}, batch 16, {trainer.model.cfg.n_members} member(s)): "
           f"max_abs_err params {err_p:.3e} (atol {FIT_ATOL}), losses rel "
           f"{err_l:.3e} (rtol {FIT_LOSS_RTOL}); loss {l_cpu[0]:.4f} → "
           f"{l_cpu[-1]:.4f}")
     if not (err_p <= FIT_ATOL and err_l <= FIT_LOSS_RTOL):
-        raise AssertionError(f"toy fit {preset} on the card disagrees with "
-                             f"the CPU")
+        raise AssertionError(f"toy fit {preset} {cfg.model} on the card "
+                             f"disagrees with the CPU")
 
 
 # ------------------------------------------- phase 7: full-width training --
@@ -701,54 +752,100 @@ def last_output(cls, name, keep):
         setattr(cls, name, saved)
 
 
-def run_training(pgs, fk_kernel, preset="halfcheetah_cadm_cem"):
-    """The training path at full width through the CLI, cut in depth:
-    returns the launches of each kernel in the run."""
+def cli_flags(fields: dict) -> list:
+    """CLI flags setting ``fields`` of ExperimentConfig."""
+    flags = []
+    for k, v in fields.items():
+        if isinstance(v, tuple):
+            v = ",".join(map(str, v))
+        flags += ["--" + k.replace("_", "-"), str(v).lower()
+                  if isinstance(v, bool) else str(v)]
+    return flags
+
+
+def matrix_argv(model: str) -> list:
+    """The matrix's cheetah cell of ``model`` as CLI flags."""
+    return cli_flags({**MATRIX_CHEETAH, **MATRIX_MODELS[model]})
+
+
+def evaluating_itrs(cfg) -> list:
+    return [i for i in range(cfg.n_itr)
+            if (i + 1) % cfg.eval_every == 0 or i == cfg.n_itr - 1]
+
+
+@contextlib.contextmanager
+def counted(pgs, fk_kernel, out):
+    """Set the kernels' launch counts to 0, run the block, and put
+    (pgs, full_dyn, fk_vel) launches into ``out``."""
+    pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
+    yield
+    out[:] = [pgs.launches, fk_kernel.launches, fk_kernel.fk_vel_launches]
+
+
+def control_steps(log) -> int:
+    """Control steps of the ``_collect`` and ``evaluate`` calls in a
+    ``timed`` log (args[0] is the trainer)."""
+    return sum(a[0].cfg.steps_per_itr if n == "_collect" else a[0].env.horizon
+               for n, _, a, _ in log if n in ("_collect", "evaluate"))
+
+
+def check_launches(tag, launched, frame_skip, control_steps):
+    expected = frame_skip * control_steps
+    print(f"{tag} launches: pgs={launched[0]} full_dyn={launched[1]} "
+          f"fk_vel={launched[2]} (expected {expected} = {frame_skip} × "
+          f"{control_steps} control steps for pgs and full_dyn)")
+    if tuple(launched[:2]) != (expected, expected):
+        raise AssertionError(f"{tag} launches {launched[:2]} != {expected}")
+
+
+def run_training(pgs, fk_kernel, tag, argv):
+    """The training path at full width through the CLI with ``argv`` (a
+    preset's or the matrix's flags), cut in depth by TRAIN_DEPTH: returns
+    the launches of each kernel in the run."""
     from cadm_tpu_torch.cli import run
-    from cadm_tpu_torch.cli.presets import PRESETS
     from cadm_tpu_torch.models.dynamics import Dynamics
+    from cadm_tpu_torch.models.grbal import GrBAL
     from cadm_tpu_torch.train.mb_trainer import MBTrainer
 
-    cfg = PRESETS[preset]
-    log, last_update = [], []
+    argv = [*argv, *TRAIN_DEPTH]
+    cfg = run.config_from_args(run.build_parser().parse_args(argv))
+    log, last_update, launched = [], [], []
     gc.collect()  # an earlier path's trainer and ring, held by a cycle
     held = torch.cuda.memory_allocated()
     with tempfile.TemporaryDirectory() as tmp, \
             timed(MBTrainer, ("_collect", "_fit_epochs_impl", "evaluate"), log), \
-            last_output(Dynamics, "update", last_update):
+            last_output(Dynamics, "update", last_update), \
+            last_output(GrBAL, "update", last_update):
         torch.cuda.reset_peak_memory_stats()
-        pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
         t0 = time.perf_counter()
-        history = run.main(["--preset", preset, *TRAIN_DEPTH, "--log-dir", tmp,
-                            "--exp-name", "t"])
-        torch.cuda.synchronize()
+        with counted(pgs, fk_kernel, launched):
+            history = run.main([*argv, "--log-dir", tmp, "--exp-name", "t"])
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = (pgs.launches, fk_kernel.launches, fk_kernel.fk_vel_launches)
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(tmp, "t", "progress.csv")) as f:
             rows = list(csv.DictReader(f))
 
-    n_envs, steps, horizon = cfg.n_envs, 20, 10
+    n_envs, steps, horizon = cfg.n_envs, cfg.steps_per_itr, cfg.env_horizon
     collects = [(s, a[6]) for n, s, a, _ in log if n == "_collect"]
     frame_skip = log[0][2][0].env.frame_skip   # args[0] is the trainer
     fits = [(s, o[0].updates - a[3].updates) for n, s, a, o in log
             if n == "_fit_epochs_impl"]
     evals = [s for n, s, _, _ in log if n == "evaluate"]
-    control_steps = steps * len(collects) + horizon * len(evals)
-    tag = f"train {preset}"
     for itr, ((c_s, random), (f_s, updates)) in enumerate(zip(collects, fits)):
         kind = (f"random collect {n_envs * steps / c_s:.1f} env steps/s"
                 if random else f"planned collect {1e3 * c_s / steps:.1f} ms "
                 f"per control step")
         print(f"{tag} itr {itr}: {kind} ({c_s:.2f} s); fit {updates} updates "
               f"in {f_s:.2f} s = {updates / f_s:.1f} updates/s")
-    print(f"{tag}: {len(evals)} evals of {horizon} control steps, "
+    print(f"{tag}: {len(evals)} evals of {horizon} control steps at "
+          f"{cfg.eval_envs} envs, "
           f"{1e3 * sum(evals) / (horizon * len(evals)):.1f} ms per control "
           f"step; wall {wall:.1f} s; peak device memory {peak / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated, {cfg.buffer_capacity}-column "
           f"ring, {n_envs} envs; {held / 2**30:.2f} GiB held before the run)")
 
-    if len(rows) != 2 or list(rows[0]) != TRAIN_KEYS:
+    if len(rows) != cfg.n_itr or list(rows[0]) != TRAIN_KEYS:
         raise AssertionError(f"{tag} progress.csv: {len(rows)} rows, keys "
                              f"{list(rows[0]) if rows else None}")
     metrics = {k: v.item() for k, v in last_update[0][1].items()}
@@ -756,46 +853,149 @@ def run_training(pgs, fk_kernel, preset="halfcheetah_cadm_cem"):
     if not all(math.isfinite(v) for v in metrics.values()) or (
             cfg.ensemble > 1 and "logvar_bound_penalty" not in metrics):
         raise AssertionError(f"{tag}: update metrics {metrics}")
+    # GrBAL's loss reports no forward MSE: NaN, as in the reference
+    nan_mse = cfg.model == "grbal"
+    eval_itrs = evaluating_itrs(cfg)
     for row in rows:
+        itr = int(row["itr"])
         bad = [k for k in TRAIN_KEYS if k.startswith("fit/")
-               and not math.isfinite(float(row[k]))]
+               and math.isfinite(float(row[k])) == (
+                   nan_mse and k == "fit/valid_fwd_mse_after")]
         if bad:
-            raise AssertionError(f"{tag} itr {row['itr']}: fit metrics not "
-                                 f"finite {bad}")
-        if not 1 <= float(row["fit/epochs_run"]) <= 8:
-            raise AssertionError(f"{tag} itr {row['itr']}: epochs_run "
+            raise AssertionError(f"{tag} itr {itr}: fit metrics {bad} "
+                                 f"{'finite' if nan_mse else 'not finite'}")
+        if not 1 <= float(row["fit/epochs_run"]) <= cfg.max_epochs:
+            raise AssertionError(f"{tag} itr {itr}: epochs_run "
                                  f"{row['fit/epochs_run']}")
+        has_eval = row["eval/return_mode0"] != ""
+        if has_eval != (itr in eval_itrs):
+            raise AssertionError(f"{tag} itr {itr}: eval columns {has_eval}")
+        returns = ("eval returns " + " / ".join(
+            f"{float(row[f'eval/return_mode{m}']):.3f}" for m in cfg.eval_modes)
+            if has_eval else "no eval")
         episodes = float(row["collect/episodes"])
-        print(f"{tag} itr {row['itr']}: episodes {episodes:.0f} "
+        print(f"{tag} itr {itr}: episodes {episodes:.0f} "
               f"({episodes - 2 * n_envs:.0f} ended early), epochs_run "
               f"{row['fit/epochs_run']}, valid loss "
               f"{float(row['fit/valid_loss_before']):.4f} → "
-              f"{float(row['fit/valid_loss_after']):.4f}, eval returns "
-              f"{float(row['eval/return_mode0']):.3f} / "
-              f"{float(row['eval/return_mode1']):.3f} / "
-              f"{float(row['eval/return_mode2']):.3f}")
-        if episodes < 2 * n_envs:
-            raise AssertionError(f"{tag} itr {row['itr']}: {episodes} "
-                                 f"episodes")
+              f"{float(row['fit/valid_loss_after']):.4f}, {returns}")
+        if episodes < steps // horizon * n_envs:
+            raise AssertionError(f"{tag} itr {itr}: {episodes} episodes")
     first = rows[0]
     if not float(first["fit/valid_loss_after"]) < float(
             first["fit/valid_loss_before"]):
         raise AssertionError(f"{tag} itr 0: the fit did not lower the valid "
                              f"loss")
-    if [len(collects), len(fits), len(evals)] != [2, 2, 6] or \
-            [r for _, r in collects] != [True, False] or len(history) != 2:
+    n_evals = len(eval_itrs) * len(cfg.eval_modes)
+    if [len(collects), len(fits), len(evals)] != [cfg.n_itr, cfg.n_itr,
+                                                 n_evals] or \
+            [r for _, r in collects] != [True] + [False] * (cfg.n_itr - 1) \
+            or len(history) != cfg.n_itr:
         raise AssertionError(f"{tag}: unexpected calls: {len(collects)} "
                              f"collects, {len(fits)} fits, {len(evals)} evals")
-    expected = frame_skip * control_steps
-    print(f"{tag} launches: pgs={launched[0]} full_dyn={launched[1]} "
-          f"fk_vel={launched[2]} (expected {expected} = {frame_skip} × "
-          f"{control_steps} control steps for pgs and full_dyn)")
-    if launched[:2] != (expected, expected):
-        raise AssertionError(f"{tag} launches {launched[:2]} != {expected}")
+    check_launches(tag, launched, frame_skip, control_steps(log))
     return launched
 
 
-# ------------------------------------------- phase 8: full-width acting ----
+# ------------------------------------------------------- phase 8: resume ----
+def run_resume(pgs, fk_kernel):
+    """The matrix's cheetah CaDM through the CLI: 3 iterations with
+    ``--checkpoint``, then (the last step removed) ``--resume`` from step 1
+    in the same process but a new trainer and generator. Its itr 2 row
+    must equal the uninterrupted run's bit for bit. Returns the launches of
+    the two runs."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+    from cadm_tpu_torch.utils.checkpoint import Checkpointer
+
+    argv = [*matrix_argv("cadm"), "--n-itr", "3", "--steps-per-itr", "20",
+            "--env-horizon", "10", "--exp-name", "r"]
+    cfg = run.config_from_args(run.build_parser().parse_args(argv))
+    log, launched = [], []
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp, \
+            timed(Checkpointer, ("save", "restore"), log), \
+            timed(MBTrainer, ("_collect", "evaluate"), log), \
+            counted(pgs, fk_kernel, launched):
+        full = run.main([*argv, "--log-dir", tmp, "--checkpoint"])
+        ck = os.path.join(tmp, "r", "checkpoints")
+        sizes = {f: os.path.getsize(os.path.join(ck, f))
+                 for f in sorted(os.listdir(ck))}
+        os.remove(os.path.join(ck, "step_2.pt"))
+        resumed = run.main([*argv, "--log-dir", tmp, "--resume"])
+        torch.cuda.synchronize()
+    save_s = [s for n, s, _, _ in log if n == "save"]
+    restore_s = [s for n, s, _, _ in log if n == "restore"]
+    frame_skip = next(a[0].env.frame_skip for n, _, a, _ in log
+                      if n == "_collect")
+    print(f"resume: checkpoint files {sizes} bytes ({cfg.n_envs} envs, "
+          f"{cfg.buffer_capacity}-column ring); save "
+          f"{', '.join(f'{x:.3f}' for x in save_s)} s, restore "
+          f"{', '.join(f'{x:.3f}' for x in restore_s)} s")
+    if [r["itr"] for r in full] != [0, 1, 2] or \
+            [r["itr"] for r in resumed] != [2] or len(restore_s) != 1:
+        raise AssertionError(f"resume: itrs {[r['itr'] for r in full]} then "
+                             f"{[r['itr'] for r in resumed]}")
+    a, b = full[2], resumed[0]
+    differ = {k: (a[k], b.get(k)) for k in a
+              if not (a[k] == b.get(k) or (isinstance(a[k], float)
+                                           and math.isnan(a[k])
+                                           and math.isnan(b.get(k))))}
+    print(f"resume: itr 2 resumed from step 1 vs uninterrupted, "
+          f"{len(a)} columns: {len(differ)} differ {differ}; eval "
+          f"{b['eval/return_mode0']:.3f} / {b['eval/return_mode1']:.3f} / "
+          f"{b['eval/return_mode2']:.3f}")
+    if differ or a.keys() != b.keys():
+        raise AssertionError(f"resume: itr 2 differs after resume: {differ}")
+    check_launches("resume cadm", launched, frame_skip, control_steps(log))
+    return launched
+
+
+# ---------------------------------------------- phase 9: trajectory dump ----
+def run_dump(pgs, fk_kernel):
+    """One iteration of the matrix's cheetah CaDM with ``--dump-trajs``:
+    ``read_trajfile`` gives back the ring's columns, 0 records dropped."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+    from cadm_tpu_torch.utils.trajsink import TrajectorySink, read_trajfile
+
+    if not TrajectorySink.available():
+        raise AssertionError("dump: the native trajectory sink did not build")
+    argv = [*matrix_argv("cadm"), "--n-itr", "1", "--steps-per-itr", "20",
+            "--env-horizon", "10", "--exp-name", "d"]
+    log, launched = [], []
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp, \
+            timed(MBTrainer, ("_collect", "evaluate"), log), \
+            counted(pgs, fk_kernel, launched):
+        t0 = time.perf_counter()
+        run.main([*argv, "--log-dir", tmp, "--dump-trajs"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = os.path.join(tmp, "d", "trajectories.bin")
+        out = dict(read_trajfile(path))
+        size = os.path.getsize(path)
+        with open(os.path.join(tmp, "d", "debug.log")) as f:
+            note = [line for line in f if "trajectories.bin:" in line]
+    trainer, buf = log[0][2][0], log[0][3][2]  # the collect's ring
+    steps = trainer.cfg.steps_per_itr
+    errs = {k: float(np.abs(out[f"itr0/{k}"]
+                            - getattr(buf, k)[:, :steps].cpu().numpy()).max())
+            for k in ("obs", "act", "next_obs")}
+    shapes = {k: v.shape for k, v in out.items()}
+    print(f"dump: {path.split(os.sep)[-1]} {size} bytes in a {wall:.1f} s "
+          f"run; {shapes}; max |file − ring| {errs}; sink: "
+          f"{note[0].split('] ')[-1].strip() if note else None}")
+    if sorted(out) != [f"itr0/{k}" for k in ("act", "next_obs", "obs")] or \
+            any(errs.values()) or not note or \
+            not note[0].strip().endswith("6 records, 0 dropped"):
+        raise AssertionError(f"dump: {sorted(out)} {errs} {note}")
+    check_launches("dump cadm", launched, trainer.env.frame_skip,
+                   control_steps(log))
+    return launched
+
+
+# ------------------------------------------ phase 10: full-width acting ----
 def run_full_slice(PRESETS, pgs, fk_kernel, preset="halfcheetah_cadm_cem",
                    n_envs=E):
     """``trainer.evaluate`` at ``n_envs`` for SLICE_HORIZON control steps in
@@ -858,6 +1058,7 @@ def main() -> int:
     from cadm_tpu_torch.ops import _build, fk_kernel, pgs
     from cadm_tpu_torch.physics.rigid import dynamics as rdyn
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -881,9 +1082,19 @@ def main() -> int:
     for preset in TRAIN_PRESETS:
         check_toy_slice(PRESETS, preset)
         check_toy_fit(PRESETS, preset)
+    for name in BASELINES:
+        check_toy_slice(PRESETS, **MATRIX_MODELS[name])
+        check_toy_fit(PRESETS, **MATRIX_MODELS[name])
     # every path starts with the counts at 0 and reads them at its end
-    paths = {f"train {p}": run_training(pgs, fk_kernel, p)
+    paths = {f"train {p}": run_training(pgs, fk_kernel, f"train {p}",
+                                        ["--preset", p])
              for p in TRAIN_PRESETS}
+    for name in BASELINES:
+        paths[f"train half_cheetah {name}"] = run_training(
+            pgs, fk_kernel, f"train half_cheetah {name} (matrix)",
+            matrix_argv(name))
+    paths["resume half_cheetah cadm"] = run_resume(pgs, fk_kernel)
+    paths["dump half_cheetah cadm"] = run_dump(pgs, fk_kernel)
     step_ms = {}
     for preset, n in ACT_PRESETS:
         step_ms[preset], paths[f"act {preset}"] = run_full_slice(
@@ -928,6 +1139,7 @@ def main() -> int:
         print(f"slice {preset} ms per control step (modes "
               f"{list(PRESETS[preset].eval_modes)}): "
               f"{', '.join(f'{x:.1f}' for x in ms)}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port's CLI and entry points: a tiny two-iteration run on the CPU,
-the flags the port does not offer, and the card as the default device."""
+the flags the port offers and those it does not, and the card as the
+default device."""
 import csv
 import dataclasses
 import json
@@ -60,9 +61,16 @@ def test_cli_trains_on_the_cpu_and_writes_the_reference_logs(tmp_path):
                                   ["--dump-trajs"], ["--dp", "2"],
                                   ["--model-par", "2"]])
 def test_flags_the_port_cannot_honour_are_rejected(flag):
-    with pytest.raises(SystemExit):
-        run.build_parser().parse_args(["--preset", "halfcheetah_cadm_cem",
-                                       *flag])
+    """The mesh flags are rejected; the checkpoint, resume and trajectory
+    flags are ported and accepted (tests/test_torch_resume.py and
+    test_torch_trajsink.py run them)."""
+    argv = ["--preset", "halfcheetah_cadm_cem", *flag]
+    if flag[0] in ("--dp", "--model-par"):
+        with pytest.raises(SystemExit):
+            run.build_parser().parse_args(argv)
+        return
+    args = run.build_parser().parse_args(argv)
+    assert getattr(args, flag[0][2:].replace("-", "_")) is True
 
 
 def test_preset_carries_the_reference_fit_settings():
@@ -144,6 +152,28 @@ def test_cripple_ant_cli_run_writes_the_reference_columns(tmp_path):
     dict(env="pendulum"), dict(ensemble_eval="assign"),
 ])
 def test_unported_options_raise_and_name_what_is_ported(override):
+    """What is still unported raises and names what is ported; the baseline
+    models (stacked, ReBAL, GrBAL) are ported and build and evaluate."""
     cfg = dataclasses.replace(PRESETS["hopper_cadm_cem"], **TOY, **override)
-    with pytest.raises(NotImplementedError, match="ported"):
-        cfg.build("cpu")
+    if override.get("model") not in ("stacked", "rnn", "grbal"):
+        with pytest.raises(NotImplementedError, match="ported"):
+            cfg.build("cpu")
+        return
+    _, model, _, trainer = cfg.build("cpu")
+    gen = torch.Generator().manual_seed(0)
+    returns = trainer.evaluate(trainer.init(gen)[3], 0, gen)
+    assert returns.shape == (2,) and torch.isfinite(returns).all()
+    if cfg.model == "grbal":
+        assert model.cfg.hidden == (8, 8)
+    else:
+        assert model.cfg.context == cfg.model
+
+
+def test_the_default_config_is_the_references_cartpole():
+    """A bare ExperimentConfig names cartpole, as the reference's; cartpole
+    is not ported, so building it raises and says so."""
+    from cadm_tpu.cli.presets import ExperimentConfig as JaxExperimentConfig
+
+    assert ExperimentConfig().env == JaxExperimentConfig().env == "cartpole"
+    with pytest.raises(NotImplementedError, match="cartpole"):
+        ExperimentConfig().build("cpu")

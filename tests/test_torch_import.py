@@ -1,11 +1,12 @@
-"""The port runs without jax, flax, optax or mujoco (the card's machine has
-none of them) and without the JAX package.
+"""The port runs without jax, flax, optax, orbax or mujoco (the card's
+machine has none of them) and without the JAX package.
 
-Runs in a subprocess because this suite's conftest imports jax: there the
-four modules are blocked in ``sys.modules``, every module of
-``cadm_tpu_torch`` is imported (the replay ring, the CLI and the logger
-among them), the four Systems are loaded from their npz files and the acting
-slice runs at toy width on the CPU.
+Runs in a subprocess because this suite's conftest imports jax: there those
+modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
+``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
+baselines, the checkpointer and the trajectory sink among them), the four
+Systems are loaded from their npz files, the acting slice runs at toy width
+on the CPU, and toy ReBAL and GrBAL runs train, checkpoint and resume.
 """
 import os
 import subprocess
@@ -16,7 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
-    for name in ("jax", "jaxlib", "flax", "optax", "mujoco"):
+    for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mujoco",
+                 "cadm_tpu"):
         sys.modules[name] = None  # any import of them raises ImportError
 
     import dataclasses, importlib, pkgutil
@@ -27,7 +29,10 @@ SCRIPT = textwrap.dedent("""
         cadm_tpu_torch.__path__, "cadm_tpu_torch.")}
     assert {"cadm_tpu_torch.train.buffer", "cadm_tpu_torch.cli.run",
             "cadm_tpu_torch.utils.logger", "cadm_tpu_torch.envs.hopper",
-            "cadm_tpu_torch.envs.ant", "cadm_tpu_torch.envs.slim_humanoid"
+            "cadm_tpu_torch.envs.ant", "cadm_tpu_torch.envs.slim_humanoid",
+            "cadm_tpu_torch.models.grbal", "cadm_tpu_torch.planners.grbal_mpc",
+            "cadm_tpu_torch.utils.checkpoint", "cadm_tpu_torch.utils.trajsink",
+            "cadm_tpu_torch.utils.debug", "cadm_tpu_torch.utils.profiling",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
@@ -62,6 +67,26 @@ SCRIPT = textwrap.dedent("""
     dyn, history = trainer.train(gen)
     assert len(history) == 1 and dyn.params["fwd"][0]["w"].shape[0] == 5
 
+    # toy ReBAL and GrBAL: a checkpointed iteration each, then a resume
+    import tempfile
+    from cadm_tpu_torch.utils.checkpoint import Checkpointer
+
+    for model in ("rnn", "grbal"):
+        toy = dataclasses.replace(
+            PRESETS["halfcheetah_cadm_cem"], model=model, hidden=(8, 8, 8),
+            n_candidates=4, plan_horizon=2, cem_iters=1, cem_elites=2,
+            n_envs=2, eval_envs=1, eval_modes=(0,), env_horizon=2,
+            buffer_capacity=8, batch_size=4, steps_per_itr=2, n_itr=2,
+            max_epochs=1, eval_every=2)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Checkpointer(tmp)
+            _, _, _, trainer = dataclasses.replace(toy, n_itr=1).build("cpu")
+            trainer.train(gen, checkpointer=ckpt)
+            _, _, _, trainer = toy.build("cpu")
+            dyn, history = trainer.train(gen, resume=ckpt.restore())
+        assert [r["itr"] for r in history] == [1], history
+        assert torch.isfinite(torch.tensor(history[0]["eval/return_mode0"]))
+
     if not torch.cuda.is_available():
         try:
             cfg.build("cuda")
@@ -71,8 +96,9 @@ SCRIPT = textwrap.dedent("""
             raise AssertionError("build('cuda') ran without a card")
 
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "flax", "optax", "mujoco",
-                                           "cadm_tpu") and sys.modules[m])
+                    if m.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                           "mujoco", "cadm_tpu")
+                    and sys.modules[m])
     assert not leaked, leaked
     print("OK")
 """)

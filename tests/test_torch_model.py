@@ -114,12 +114,17 @@ def test_vanilla_context_is_zero_width_and_ensembles_are_refused():
     z = model.get_context(params, model.init_state(torch.Generator()).norm,
                           dobs, act, valid)
     assert z.shape == (E, 0)
-    # ensembles are ported now (tests/test_torch_ensemble.py); what stays
-    # refused are the contexts of the unported baselines
-    for context in ("stacked", "rnn"):
-        with pytest.raises(NotImplementedError):
-            Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, n_members=5,
+    # ensembles are ported (tests/test_torch_ensemble.py), and so are the
+    # baselines' contexts (tests/test_torch_rebal_stacked.py), with members
+    # too; what stays refused is a context the reference does not have
+    for context, width in (("stacked", K * (OBS + ACT)), ("rnn", 10)):
+        m = Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, n_members=5,
                                     context=context), "cpu")
+        p = m.init_params(torch.Generator().manual_seed(0))
+        assert p["fwd"][0]["w"].shape == (5, OBS + ACT + width, 200)
+    with pytest.raises(ValueError, match="context"):
+        Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, context="lstm"),
+                 "cpu")
     ens = Dynamics(DynamicsConfig(obs_dim=OBS, act_dim=ACT, n_members=5,
                                   probabilistic=True), "cpu")
     p = ens.init_params(torch.Generator().manual_seed(0))
