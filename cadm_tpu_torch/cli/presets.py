@@ -1,15 +1,15 @@
-"""Experiment config and the model-based rigid presets (counterpart of
+"""Experiment config and every preset of the reference (counterpart of
 cadm_tpu/cli/presets.py).
 
-``ExperimentConfig`` carries the reference's knobs for the model-based
-trainer; ``build(device)`` assembles env, model, planner and trainer on one
-device (the card unless the caller asks for the CPU). The port builds
-``trainer="mb"`` with ``model`` ∈ {vanilla, stacked, cadm, rnn} (one member
-or a PE-TS ensemble) or ``grbal`` (its net takes ``hidden[:3]``), on the
-five rigid families (half_cheetah, hopper, ant, cripple_ant,
-slim_humanoid). Still unported, each raising ``NotImplementedError``: the
-PPO trainer, ``normalize_env`` and the analytic envs (cartpole, pendulum;
-cartpole is the default env, as in the reference).
+``ExperimentConfig`` carries the reference's knobs; ``build(device)``
+assembles (env, model, planner, trainer) on one device (the card unless the
+caller asks for the CPU). ``trainer="mb"`` takes ``model`` ∈ {vanilla,
+stacked, cadm, rnn} (one member or a PE-TS ensemble) or ``grbal`` (its net
+takes ``hidden[:3]``); ``trainer="ppo"`` is PPO + CaDM with ``model`` ∈
+{vanilla, stacked, cadm} and no planner. Every env family (cartpole, the
+default env as in the reference; pendulum, half_cheetah, hopper, ant,
+cripple_ant, slim_humanoid), optionally wrapped in ``NormalizedEnv``
+(``normalize_env``).
 """
 from __future__ import annotations
 
@@ -18,27 +18,34 @@ from typing import Optional, Tuple
 
 from cadm_tpu_torch.core.types import resolve_device
 from cadm_tpu_torch.envs import make
+from cadm_tpu_torch.envs.wrappers import NormalizedEnv
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
 from cadm_tpu_torch.models.grbal import GrBAL, GrBALConfig
 from cadm_tpu_torch.planners.grbal_mpc import GrBALPlanner
 from cadm_tpu_torch.planners.mpc import MPCPlanner, PlannerConfig
 from cadm_tpu_torch.train.mb_trainer import MBTrainer, TrainerConfig
+from cadm_tpu_torch.train.ppo import PPOConfig, PPOTrainer
 
 CONTEXT_OF_MODEL = {"vanilla": "none", "stacked": "stacked",
                     "cadm": "encoder", "rnn": "rnn"}
-PORTED = ("trainer='mb'; model 'vanilla'/'stacked'/'cadm'/'rnn' with any "
-          "ensemble size, or 'grbal'; envs half_cheetah, hopper, ant, "
-          "cripple_ant, slim_humanoid; normalize_env=False")
+# the reference's PPO stack knows no recurrent or adapted model
+PPO_MODELS = ("vanilla", "stacked", "cadm")
+PORTED = ("trainer='mb' with model 'vanilla'/'stacked'/'cadm'/'rnn' (any "
+          "ensemble size) or 'grbal'; trainer='ppo' with model "
+          "'vanilla'/'stacked'/'cadm'; every env family, normalize_env "
+          "either way")
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     trainer: str = "mb"
     # env
-    env: str = "cartpole"             # unported: pass a rigid family
+    env: str = "cartpole"
     n_envs: int = 16
     randomization: str = "discrete"   # paper scale sets | "continuous" bands
-    normalize_env: bool = False       # the reference's NormalizedEnv: unported
+    # wrap in NormalizedEnv: actions rescaled from [-1, 1] onto the env's
+    # limits (observation whitening is the wrapper's own opt-in)
+    normalize_env: bool = False
     # episode protocol overrides (None = the family's default);
     # terminate_unhealthy=False, env_horizon=1000 is the MBBL protocol
     terminate_unhealthy: Optional[bool] = None
@@ -83,9 +90,16 @@ class ExperimentConfig:
     epoch_updates_cap: int = 400
     # symmetry-group train-batch augmentation (envs with symmetry_maps())
     symmetry_aug: bool = False
+    # PPO-only knobs (trainer="ppo")
+    rollout_len: int = 256
+    ppo_lr: float = 3e-4
+    ppo_epochs: int = 10
+    ppo_minibatches: int = 8
+    policy_hidden: Tuple[int, ...] = (64, 64)
 
     def build(self, device="cuda"):
-        """(env, model, planner, trainer) on ``device``.
+        """(env, model, planner, trainer) on ``device``; PPO has no planner
+        (None).
 
         Raises where the port cannot honour the config, including a CUDA
         device on a machine without one (it never falls back to the CPU).
@@ -95,36 +109,22 @@ class ExperimentConfig:
             raise ValueError(
                 f"n_envs/eval_envs must be >= 1, got {self.n_envs}/{self.eval_envs}"
             )
-        if self.trainer != "mb" or self.normalize_env or (
+        if self.trainer not in ("mb", "ppo") or (
                 self.model not in CONTEXT_OF_MODEL and self.model != "grbal"):
             raise NotImplementedError(
                 f"not ported: trainer={self.trainer!r} model={self.model!r} "
-                f"normalize_env={self.normalize_env} (ported: {PORTED})"
+                f"(ported: {PORTED})"
             )
         env = make(self.env, randomization=self.randomization, device=device,
                    terminate_unhealthy=self.terminate_unhealthy,
                    horizon=self.env_horizon)
+        if self.normalize_env:
+            env = NormalizedEnv(env)
+        if self.trainer == "ppo":
+            return self._build_ppo(env, device)
         if self.model == "grbal":
             return self._build_grbal(env, device)
-        model = Dynamics(
-            DynamicsConfig(
-                obs_dim=env.obs_dim,
-                act_dim=env.act_dim,
-                hidden=self.hidden,
-                n_members=self.ensemble,
-                probabilistic=(self.ensemble > 1 if self.probabilistic is None
-                               else self.probabilistic),
-                context=CONTEXT_OF_MODEL[self.model],
-                z_dim=self.z_dim,
-                history_k=self.history_k,
-                future_m=self.future_m,
-                beta_backward=self.beta_backward,
-                lr=self.lr,
-                mean_anchor=self.mean_anchor,
-                detach_logvar_trunk=self.detach_logvar_trunk,
-            ),
-            device=device,
-        )
+        model = self._dynamics(env, device)
         planner = MPCPlanner(
             PlannerConfig(
                 kind=self.planner,
@@ -146,6 +146,54 @@ class ExperimentConfig:
         trainer = MBTrainer(env, model, planner,
                             self._trainer_config(self.symmetry_aug))
         return env, model, planner, trainer
+
+    def _dynamics(self, env, device) -> Dynamics:
+        return Dynamics(
+            DynamicsConfig(
+                obs_dim=env.obs_dim,
+                act_dim=env.act_dim,
+                hidden=self.hidden,
+                n_members=self.ensemble,
+                probabilistic=(self.ensemble > 1 if self.probabilistic is None
+                               else self.probabilistic),
+                context=CONTEXT_OF_MODEL[self.model],
+                z_dim=self.z_dim,
+                history_k=self.history_k,
+                future_m=self.future_m,
+                beta_backward=self.beta_backward,
+                lr=self.lr,
+                mean_anchor=self.mean_anchor,
+                detach_logvar_trunk=self.detach_logvar_trunk,
+            ),
+            device=device,
+        )
+
+    def _build_ppo(self, env, device):
+        """PPO + CaDM as the reference builds it (its context map has no
+        'rnn' or 'grbal': those raise ``KeyError``, as there)."""
+        if self.model not in PPO_MODELS:
+            raise KeyError(f"trainer='ppo' takes model in {PPO_MODELS}, not "
+                           f"{self.model!r} (ported: {PORTED})")
+        model = self._dynamics(env, device)
+        trainer = PPOTrainer(
+            env,
+            model,
+            PPOConfig(
+                n_envs=self.n_envs,
+                rollout_len=self.rollout_len,
+                n_itr=self.n_itr,
+                policy_hidden=self.policy_hidden,
+                lr=self.ppo_lr,
+                ppo_epochs=self.ppo_epochs,
+                minibatches=self.ppo_minibatches,
+                model_updates_per_itr=self.model_updates_per_itr,
+                model_batch=self.batch_size,
+                buffer_capacity=self.buffer_capacity,
+                eval_envs=self.eval_envs,
+                eval_modes=self.eval_modes,
+            ),
+        )
+        return env, model, None, trainer
 
     def _trainer_config(self, symmetry_aug: bool) -> TrainerConfig:
         return TrainerConfig(
@@ -199,10 +247,20 @@ class ExperimentConfig:
         return env, model, planner, trainer
 
 
-# The reference's model-based rigid presets with its values
-# (cadm_tpu/cli/presets.py); its cartpole, pendulum and PPO presets are not
-# ported.
+# The reference's presets with its values (cadm_tpu/cli/presets.py:303-362)
 PRESETS = {
+    # CartPole, randomized force/length, vanilla DM + RS-MPC
+    "cartpole_vanilla_rs": ExperimentConfig(
+        env="cartpole", model="vanilla", planner="rs",
+        n_envs=8, n_candidates=500, plan_horizon=20, history_k=10, future_m=5,
+        steps_per_itr=210, n_itr=15,
+    ),
+    # Pendulum, randomized mass/length, CaDM encoder + CEM-MPC
+    "pendulum_cadm_cem": ExperimentConfig(
+        env="pendulum", model="cadm", planner="cem", fit_protocol="epochs",
+        n_envs=8, n_candidates=200, plan_horizon=20,
+        steps_per_itr=210, n_itr=15,
+    ),
     # HalfCheetah, randomized mass/damping, CaDM fwd+bwd + CEM @ 2048 envs
     "halfcheetah_cadm_cem": ExperimentConfig(
         env="half_cheetah", model="cadm", planner="cem", fit_protocol="epochs",
@@ -238,5 +296,18 @@ PRESETS = {
         n_envs=512, n_candidates=200, plan_horizon=30,
         steps_per_itr=500, n_itr=20, buffer_capacity=10000,
         model_updates_per_itr=2000, batch_size=256,
+    ),
+    # PPO + CaDM (paper §4.3): policy on concat(obs, z), shifted-range eval
+    "hopper_ppo_cadm": ExperimentConfig(
+        trainer="ppo", env="hopper", model="cadm",
+        n_envs=128, rollout_len=256, n_itr=60,
+        model_updates_per_itr=200, batch_size=256, buffer_capacity=4096,
+        eval_envs=16,
+    ),
+    "slim_humanoid_ppo_cadm": ExperimentConfig(
+        trainer="ppo", env="slim_humanoid", model="cadm",
+        n_envs=128, rollout_len=256, n_itr=60,
+        model_updates_per_itr=200, batch_size=256, buffer_capacity=4096,
+        eval_envs=16,
     ),
 }

@@ -6,10 +6,13 @@ Examples:
       --n-itr 2 --steps-per-itr 20 --env-horizon 10 --log-dir runs
   python -m cadm_tpu_torch.cli.run --env half_cheetah --model grbal \\
       --exp-name cheetah_grbal --checkpoint      # ... and later --resume
+  python -m cadm_tpu_torch.cli.run --preset hopper_ppo_cadm   # PPO + CaDM
 
-Presets: halfcheetah_cadm_cem, hopper_cadm_cem, slim_humanoid_cadm_cem,
-ant_cadm_ensemble_cem, cripple_ant_cadm_ensemble_cem (the reference's
-values).
+Presets (the reference's values): cartpole_vanilla_rs, pendulum_cadm_cem,
+halfcheetah_cadm_cem, hopper_cadm_cem, slim_humanoid_cadm_cem,
+ant_cadm_ensemble_cem, cripple_ant_cadm_ensemble_cem, hopper_ppo_cadm,
+slim_humanoid_ppo_cadm. Without a preset the config's defaults apply
+(cartpole, CaDM, CEM, as in the reference).
 
 One flag per ``ExperimentConfig`` field overrides the preset; ``--device``
 (default ``cuda``) picks the card or, for tests, ``cpu``. Writes
@@ -20,7 +23,8 @@ training state after every iteration to ``<log-dir>/<exp-name>/checkpoints``
 at the next iteration, so a long run can span several processes. A resumed
 process rewrites ``progress.csv`` with its own rows only, as the
 reference's logger does: keep each process's copy. ``--dump-trajs`` streams
-each iteration's transitions to ``trajectories.bin`` (``utils/trajsink.py``).
+each iteration's transitions to ``trajectories.bin`` (``utils/trajsink.py``);
+under ``--trainer ppo`` it is ignored, as in the reference.
 The reference's mesh flags (``--dp``, ``--model-par``) are not offered
 (argparse rejects them).
 """
@@ -113,15 +117,19 @@ def main(argv=None):
         logger.log(f"resumed full training state from checkpoint step "
                    f"{ckpt.latest_step}")
     sink = None
-    if args.dump_trajs:
+    if args.dump_trajs and cfg.trainer != "ppo":
         if TrajectorySink.available():
             sink = TrajectorySink(f"{logger.dir}/trajectories.bin")
         else:
             logger.log("native trajsink unavailable; --dump-trajs ignored")
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     try:
-        _, history = trainer.train(gen, logger=logger, checkpointer=ckpt,
-                                   traj_sink=sink, resume=resume)
+        if cfg.trainer == "ppo":
+            _, _, history = trainer.train(gen, logger=logger,
+                                          checkpointer=ckpt, resume=resume)
+        else:
+            _, history = trainer.train(gen, logger=logger, checkpointer=ckpt,
+                                       traj_sink=sink, resume=resume)
     finally:
         if sink is not None:
             sink.flush()

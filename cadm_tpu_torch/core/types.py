@@ -72,6 +72,18 @@ def tree_map(fn: Callable, *trees: PyTree) -> PyTree:
     raise TypeError(f"tree_map: unsupported node {type(t0).__name__}")
 
 
+def leading_dim(tree: PyTree) -> int:
+    """The leading (env) axis of the first tensor of a tree of dataclasses,
+    dicts, lists and tuples."""
+    if isinstance(tree, Tensor):
+        return tree.shape[0]
+    if dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        tree = list(tree.values())
+    return leading_dim(tree[0])
+
+
 def tree_where(pred: Tensor, on_true: PyTree, on_false: PyTree) -> PyTree:
     """Per-env ``torch.where`` over matching trees; ``pred`` is (E,) bool."""
 

@@ -1,15 +1,16 @@
-"""Env registry of the port (counterpart of cadm_tpu/envs/__init__.py).
-
-The five rigid-body families are ported; the analytic ones (cartpole,
-pendulum) are not, and ``make`` raises ``NotImplementedError`` for them.
-"""
+"""Env registry of the port (counterpart of cadm_tpu/envs/__init__.py): the
+two analytic families (cartpole, pendulum) and the five rigid-body ones."""
 from cadm_tpu_torch.envs.ant import AntEnv, CrippleAntEnv
 from cadm_tpu_torch.envs.base import Env
+from cadm_tpu_torch.envs.cartpole import CartPoleEnv
 from cadm_tpu_torch.envs.half_cheetah import HalfCheetahEnv
 from cadm_tpu_torch.envs.hopper import HopperEnv
+from cadm_tpu_torch.envs.pendulum import PendulumEnv
 from cadm_tpu_torch.envs.slim_humanoid import SlimHumanoidEnv
 
 ENVS = {
+    "cartpole": CartPoleEnv,
+    "pendulum": PendulumEnv,
     "half_cheetah": HalfCheetahEnv,
     "hopper": HopperEnv,
     "ant": AntEnv,
@@ -23,9 +24,6 @@ def make(name: str, randomization: str = "discrete", device="cuda",
     """Construct an env family on ``device``; ``terminate_unhealthy`` and
     ``horizon`` in ``overrides`` replace the family's defaults (see
     ``Env.__init__``). Without a card the default device raises; tests pass
-    ``device="cpu"``."""
-    if name not in ENVS:
-        raise NotImplementedError(
-            f"env {name!r} is not ported yet (ported: {sorted(ENVS)})"
-        )
+    ``device="cpu"``. An unknown name is a ``KeyError``, as in the
+    reference."""
     return ENVS[name](randomization, device=device, **overrides)

@@ -17,13 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from cadm_tpu_torch.core.types import PyTree
+from cadm_tpu_torch.core.types import PyTree, leading_dim
+from cadm_tpu_torch.envs.base import uniform
 from cadm_tpu_torch.envs.rigid_base import (
     RigidEnv,
     RigidPhys,
-    n_envs,
     normalize_root_quat,
-    uniform,
 )
 from cadm_tpu_torch.physics.rigid import dynamics as rdyn
 
@@ -49,7 +48,7 @@ class AntEnv(RigidEnv):
     _vx_index = 13
 
     def init_phys(self, gen: torch.Generator, params: PyTree) -> RigidPhys:
-        n = n_envs(params)
+        n = leading_dim(params)
         qpos0 = torch.as_tensor(ANT_INIT_QPOS, dtype=torch.float32,
                                 device=self.device)
         qpos = qpos0 + uniform(gen, (n, self.sys.nq), -0.1, 0.1)

@@ -20,11 +20,18 @@ import torch
 from cadm_tpu_torch.core.types import (
     EnvState,
     PyTree,
+    leading_dim,
     resolve_device,
     tree_where,
 )
 
 Tensor = torch.Tensor
+
+
+def uniform(gen: torch.Generator, shape, lo: float, hi: float) -> Tensor:
+    """U(lo, hi) draws of ``shape`` on the generator's device."""
+    u = torch.rand(*shape, generator=gen, device=gen.device)
+    return lo + (hi - lo) * u
 
 
 class Env:
@@ -92,8 +99,11 @@ class Env:
         return (o > self.bad_obs_limit) | (d > self.bad_dobs_limit)
 
     def unstable(self, phys: PyTree) -> Tensor:
-        """Physics-stability guard per env: True ends the episode."""
-        raise NotImplementedError
+        """Physics-stability guard per env: True ends the episode. False for
+        every env here (the analytic families); the rigid families override
+        it."""
+        return torch.zeros(leading_dim(phys), dtype=torch.bool,
+                           device=self.device)
 
     def action_limits(self) -> Tuple[Tensor, Tensor]:
         ones = torch.ones(self.act_dim, device=self.device)

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 from cadm_tpu_torch.core.types import PyTree
-from cadm_tpu_torch.envs.rigid_base import RigidEnv, RigidPhys, uniform
+from cadm_tpu_torch.envs.base import uniform
+from cadm_tpu_torch.envs.rigid_base import RigidEnv, RigidPhys
 
 Tensor = torch.Tensor
 

@@ -33,6 +33,11 @@ class ScaleSet:
                             device=gen.device)
         return vals[idx]
 
+    def scaled(self, base: float) -> "ScaleSet":
+        """The same set multiplied onto a nominal value (e.g. force 10.0)."""
+        return ScaleSet(*(tuple(base * v for v in vals)
+                          for vals in (self.train, self.moderate, self.extreme)))
+
 
 @dataclasses.dataclass(frozen=True)
 class ScaleRange:
@@ -58,6 +63,12 @@ class ScaleRange:
         lo = torch.where(left, band[0], band[2])
         hi = torch.where(left, band[1], band[3])
         return u * (hi - lo) + lo
+
+    def scaled(self, base: float) -> "ScaleRange":
+        """The same bands multiplied onto a nominal value."""
+        return ScaleRange(*(tuple(base * v for v in vals)
+                            for vals in (self.train, self.moderate,
+                                         self.extreme)))
 
 
 # The paper's canonical multiplicative scheme; both share the train hull.

@@ -41,17 +41,6 @@ def load_system(asset: str) -> System:
     return System(**kwargs)
 
 
-def uniform(gen: torch.Generator, shape, lo: float, hi: float) -> Tensor:
-    """U(lo, hi) draws of ``shape`` on the generator's device."""
-    u = torch.rand(*shape, generator=gen, device=gen.device)
-    return lo + (hi - lo) * u
-
-
-def n_envs(params: PyTree) -> int:
-    """The env count of a hidden-params dataclass (its leading axis)."""
-    return getattr(params, dataclasses.fields(params)[0].name).shape[0]
-
-
 def normalize_root_quat(qpos: Tensor) -> Tensor:
     """``qpos`` (E, nq) with its free root's quaternion qpos[:, 3:7]
     renormalised."""

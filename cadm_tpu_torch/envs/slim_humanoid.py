@@ -11,11 +11,11 @@ from __future__ import annotations
 import torch
 
 from cadm_tpu_torch.core.types import PyTree
+from cadm_tpu_torch.envs.base import uniform
 from cadm_tpu_torch.envs.rigid_base import (
     RigidEnv,
     RigidPhys,
     normalize_root_quat,
-    uniform,
 )
 
 Tensor = torch.Tensor

@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from cadm_tpu_torch.models.dynamics import SegmentBatch
+from cadm_tpu_torch.models.dynamics import NormStats, SegmentBatch
 
 Tensor = torch.Tensor
 
@@ -179,6 +179,14 @@ class ReplayBuffer:
             (self.next_obs - self.obs).reshape(-1, d),
             mask.reshape(-1),
         )
+
+    def norm_stats(self) -> NormStats:
+        """The model's normalization statistics (mean and population std of
+        obs, act and Δobs) over the ring's filled, healthy columns."""
+        obs, act, dobs, mask = self.norm_inputs()
+        return NormStats(*masked_mean_std(obs, mask),
+                         *masked_mean_std(act, mask),
+                         *masked_mean_std(dobs, mask))
 
 
 def masked_mean_std(x: Tensor, mask: Tensor, eps: float = 1e-6

@@ -36,7 +36,7 @@ from cadm_tpu_torch.models.dynamics import (
     SegmentBatch,
 )
 from cadm_tpu_torch.planners.mpc import MPCPlanner
-from cadm_tpu_torch.train.buffer import ReplayBuffer, masked_mean_std
+from cadm_tpu_torch.train.buffer import ReplayBuffer
 from cadm_tpu_torch.utils.checkpoint import from_plain, to_plain
 
 Tensor = torch.Tensor
@@ -219,16 +219,13 @@ class MBTrainer:
     # -------------------------------------------------------------- fit --
     def _refresh_norm(self, buffer: ReplayBuffer, dyn_state: DynamicsState
                       ) -> DynamicsState:
-        obs, act, dobs, mask = buffer.norm_inputs()
-        om, os_ = masked_mean_std(obs, mask)
-        am, as_ = masked_mean_std(act, mask)
-        dm, ds = masked_mean_std(dobs, mask)
+        n = buffer.norm_stats()
         if self._sym_maps is not None:
-            om, os_ = _symmetrize_stats(self._sym_maps["obs"], om, os_)
-            am, as_ = _symmetrize_stats(self._sym_maps["act"], am, as_)
-            dm, ds = _symmetrize_stats(self._sym_maps["obs"], dm, ds)
-        return dataclasses.replace(
-            dyn_state, norm=NormStats(om, os_, am, as_, dm, ds))
+            m_o, m_a = self._sym_maps["obs"], self._sym_maps["act"]
+            n = NormStats(*_symmetrize_stats(m_o, n.obs_mean, n.obs_std),
+                          *_symmetrize_stats(m_a, n.act_mean, n.act_std),
+                          *_symmetrize_stats(m_o, n.dobs_mean, n.dobs_std))
+        return dataclasses.replace(dyn_state, norm=n)
 
     def _augment(self, batch: SegmentBatch, group_idx: Tensor) -> SegmentBatch:
         """Map each segment by its group element ``group_idx`` (n_members,

@@ -1,0 +1,379 @@
+"""PPO + CaDM (counterpart of cadm_tpu/train/ppo.py): a model-free policy
+conditioned on the learned context (arXiv:2005.06800 §4.3).
+
+A PPO policy/value pair reads concat(obs, z), where z is the CaDM context
+encoder's output (zero-width for ``context='none'``). The encoder trains
+with the forward/backward dynamics losses on the same rollouts, never on
+the PPO loss: z enters the policy under ``no_grad``.
+
+Per iteration: a collect of ``rollout_len`` steps of every env (Gaussian
+actions around the tanh-MLP mean, clipped to [-1, 1], into the replay ring
+and the trajectory), GAE with advantages normalized by their population
+std, ``ppo_epochs`` epochs of clipped-surrogate minibatch steps (optax's
+``clip_by_global_norm`` then Adam, ``clip_adam_step``), the dynamics fit on
+the ring, and a deterministic-mean evaluation of fresh episodes on each
+dynamics range. The reference's scans are Python loops over batched device
+work here; its metrics, keys and their order are kept.
+
+The reference's quirks are kept: each collect starts its return
+accumulator at 0, so an episode spanning two collects reports only its
+second part; an auto-reset at the horizon counts as terminal in GAE; with
+``model='vanilla'`` the fit trains a model that nothing reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from cadm_tpu_torch.core.types import (
+    batched_history,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    tree_where,
+)
+from cadm_tpu_torch.envs.base import Env
+from cadm_tpu_torch.models.dynamics import (
+    AdamState,
+    Dynamics,
+    DynamicsState,
+    clip_adam_step,
+)
+from cadm_tpu_torch.models.nets import mlp_apply, mlp_init
+from cadm_tpu_torch.train.buffer import ReplayBuffer
+from cadm_tpu_torch.utils.checkpoint import from_plain, to_plain
+
+Tensor = torch.Tensor
+LOG_2PI = math.log(2.0 * math.pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    n_envs: int = 32
+    rollout_len: int = 128
+    n_itr: int = 50
+    policy_hidden: Tuple[int, ...] = (64, 64)
+    lr: float = 3e-4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    value_coef: float = 0.5
+    entropy_coef: float = 0.0
+    ppo_epochs: int = 10
+    minibatches: int = 4
+    max_grad_norm: float = 0.5
+    # CaDM side
+    model_updates_per_itr: int = 200
+    model_batch: int = 128
+    buffer_capacity: int = 4096
+    # shifted-range evaluation: fresh episodes driven by the deterministic
+    # policy mean on each dynamics range
+    eval_envs: int = 16
+    eval_modes: Tuple[int, ...] = (0, 1, 2)
+
+
+@dataclasses.dataclass
+class PPOState:
+    params: dict          # {'policy': MLP, 'log_std': (act,), 'value': MLP}
+    opt_state: AdamState
+    updates: int = 0      # minibatch steps taken
+
+
+class PPOTrainer:
+    def __init__(self, env: Env, model: Dynamics, config: PPOConfig):
+        self.env = env
+        self.model = model
+        self.cfg = config
+
+    # ------------------------------------------------------------- init --
+    @property
+    def _pol_in(self) -> int:
+        return self.env.obs_dim + self.model.cfg.context_dim
+
+    def init(self, gen: torch.Generator):
+        """(env states, histories, replay ring, PPO state, model state)."""
+        env, cfg, dev = self.env, self.cfg, self.env.device
+        env_states = env.reset(gen, cfg.n_envs)
+        hists = batched_history(self.model.cfg, cfg.n_envs, dev)
+        params = {
+            "policy": mlp_init(gen, [self._pol_in, *cfg.policy_hidden,
+                                     env.act_dim]),
+            "log_std": torch.full((env.act_dim,), -0.5, device=dev),
+            "value": mlp_init(gen, [self._pol_in, *cfg.policy_hidden, 1]),
+        }
+        ppo_state = PPOState(params, AdamState.zeros_like(params))
+        dyn_state = self.model.init_state(gen)
+        buffer = ReplayBuffer.create(cfg.n_envs, cfg.buffer_capacity,
+                                     env.obs_dim, env.act_dim, dev)
+        return env_states, hists, buffer, ppo_state, dyn_state
+
+    # ----------------------------------------------------------- policy --
+    def _dist(self, params: dict, obs_z: Tensor) -> Tuple[Tensor, Tensor]:
+        """(mean, log_std) of the diagonal Gaussian policy."""
+        return (mlp_apply(params["policy"], obs_z, activation=torch.tanh),
+                params["log_std"])
+
+    @staticmethod
+    def _logp(mean: Tensor, log_std: Tensor, act: Tensor) -> Tensor:
+        var = torch.exp(2 * log_std)
+        return torch.sum(-0.5 * ((act - mean) ** 2 / var + 2 * log_std
+                                 + LOG_2PI), dim=-1)
+
+    @staticmethod
+    def _value(params: dict, obs_z: Tensor) -> Tensor:
+        return mlp_apply(params["value"], obs_z, activation=torch.tanh)[..., 0]
+
+    def _obs_z(self, dyn_state: DynamicsState, obs: Tensor, hists) -> Tensor:
+        z = self.model.context_from_history(dyn_state.params, dyn_state.norm,
+                                            hists)
+        return torch.cat([obs, z], dim=-1)
+
+    # ---------------------------------------------------------- collect --
+    @torch.no_grad()
+    def _collect(self, gen: torch.Generator, env_states, hists,
+                 buffer: ReplayBuffer, ppo_state: PPOState,
+                 dyn_state: DynamicsState, noise: Optional[Tensor] = None):
+        """``rollout_len`` steps of every env → (env states, histories,
+        ring, trajectory, bootstrap value).
+
+        The trajectory holds (T, E, ...) ``obs_z``, ``act``, ``logp`` (of the
+        clipped action), ``value`` (before the step), ``reward``, ``done``
+        and ``ep_return`` (the episode's return where it ended, NaN
+        elsewhere). ``noise`` (T, E, act) replaces the policy's standard
+        normal draws (tests feed both packages the same numbers).
+        """
+        env, model, p = self.env, self.model, ppo_state.params
+        ret_acc = torch.zeros(self.cfg.n_envs, device=env.device)
+        traj = {k: [] for k in ("obs_z", "act", "logp", "value", "reward",
+                                "done", "ep_return")}
+        for t in range(self.cfg.rollout_len):
+            obs_z = self._obs_z(dyn_state, env_states.obs, hists)
+            mean, log_std = self._dist(p, obs_z)
+            eps = noise[t] if noise is not None else torch.randn(
+                mean.shape, generator=gen, device=env.device)
+            act = torch.clamp(mean + torch.exp(log_std) * eps, -1.0, 1.0)
+            prev_obs, ep_step = env_states.obs, env_states.t
+            env_states, obs, reward, done = env.step(env_states, act, gen)
+            buffer.append(prev_obs, act, obs, done, ep_step,
+                          env.bad_transition(prev_obs, obs))
+            pushed = model.push_history(dyn_state.params, dyn_state.norm,
+                                        hists, prev_obs, obs - prev_obs, act)
+            hists = tree_where(done, tree_map(torch.zeros_like, pushed),
+                               pushed)
+            ret_acc = ret_acc + reward
+            for k, v in (("obs_z", obs_z), ("act", act),
+                         ("logp", self._logp(mean, log_std, act)),
+                         ("value", self._value(p, obs_z)),
+                         ("reward", reward), ("done", done),
+                         ("ep_return", torch.where(done, ret_acc, math.nan))):
+                traj[k].append(v)
+            ret_acc = torch.where(done, 0.0, ret_acc)
+        traj = {k: torch.stack(v) for k, v in traj.items()}
+        last_value = self._value(p, self._obs_z(dyn_state, env_states.obs,
+                                                hists))
+        return env_states, hists, buffer, traj, last_value
+
+    # -------------------------------------------------------------- gae --
+    def _gae(self, traj: dict, last_value: Tensor) -> Tuple[Tensor, Tensor]:
+        """(advantages normalized by their population std, returns)."""
+        cfg = self.cfg
+        adv = torch.empty_like(traj["value"])
+        gae, next_value = torch.zeros_like(last_value), last_value
+        for t in reversed(range(adv.shape[0])):
+            nonterminal = 1.0 - traj["done"][t].float()
+            delta = (traj["reward"][t] + cfg.gamma * next_value * nonterminal
+                     - traj["value"][t])
+            gae = delta + cfg.gamma * cfg.gae_lambda * nonterminal * gae
+            adv[t], next_value = gae, traj["value"][t]
+        returns = adv + traj["value"]
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        return adv, returns
+
+    # ------------------------------------------------------------ update --
+    def _loss(self, params: dict, batch: dict) -> Tensor:
+        """Clipped surrogate + value_coef·MSE − entropy_coef·entropy."""
+        cfg = self.cfg
+        mean, log_std = self._dist(params, batch["obs_z"])
+        ratio = torch.exp(self._logp(mean, log_std, batch["act"])
+                          - batch["logp"])
+        s1 = ratio * batch["adv"]
+        s2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * batch["adv"]
+        pg_loss = -torch.mean(torch.minimum(s1, s2))
+        v_loss = torch.mean((self._value(params, batch["obs_z"])
+                             - batch["ret"]) ** 2)
+        entropy = torch.sum(log_std + 0.5 * (LOG_2PI + 1.0))
+        return pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
+
+    @torch.no_grad()
+    def _ppo_update(self, gen: torch.Generator, ppo_state: PPOState,
+                    traj: dict, last_value: Tensor,
+                    perms: Optional[Tensor] = None):
+        """GAE, then ``ppo_epochs`` epochs of ``minibatches`` steps each on
+        the (T, E) block flattened time-major; each epoch takes the first
+        mb·minibatches entries of a permutation (``perms`` (epochs, T·E)
+        replaces the draws). Returns the new state and the mean loss of the
+        first and the last epoch."""
+        cfg = self.cfg
+        adv, returns = self._gae(traj, last_value)
+        flat = {k: v.reshape((-1,) + v.shape[2:])
+                for k, v in {**traj, "adv": adv, "ret": returns}.items()}
+        n = flat["adv"].shape[0]
+        mb = n // cfg.minibatches
+        params, opt, updates = (ppo_state.params, ppo_state.opt_state,
+                                ppo_state.updates)
+        epoch_losses = []
+        for epoch in range(cfg.ppo_epochs):
+            perm = perms[epoch] if perms is not None else torch.randperm(
+                n, generator=gen, device=adv.device)
+            losses = []
+            for idx in perm[: mb * cfg.minibatches].reshape(cfg.minibatches,
+                                                            mb):
+                batch = {k: v[idx] for k, v in flat.items()}
+                live = [x.detach().requires_grad_(True)
+                        for x in tree_leaves(params)]
+                with torch.enable_grad():
+                    loss = self._loss(tree_unflatten(params, live), batch)
+                    grads = torch.autograd.grad(loss, live)
+                params, opt = clip_adam_step(params, opt, list(grads), cfg.lr,
+                                             cfg.max_grad_norm)
+                updates += 1
+                losses.append(loss.detach())
+            epoch_losses.append(torch.stack(losses).mean())
+        return PPOState(params, opt, updates), {
+            "ppo/loss_first": epoch_losses[0],
+            "ppo/loss_last": epoch_losses[-1],
+        }
+
+    # --------------------------------------------------------- fit model --
+    def _draw(self, buffer: ReplayBuffer, gen: torch.Generator, split: str):
+        """Segment indices of one (n_members, model_batch) minibatch."""
+        return buffer.draw_indices(
+            gen, (self.model.cfg.n_members, self.cfg.model_batch), split)
+
+    def _sample(self, buffer: ReplayBuffer, idx):
+        mc = self.model.cfg
+        return buffer.gather(*idx, mc.history_k, mc.future_m)
+
+    @torch.no_grad()
+    def _fit_model(self, gen: torch.Generator, buffer: ReplayBuffer,
+                   dyn_state: DynamicsState):
+        """The norm refreshed from the whole ring, ``model_updates_per_itr``
+        updates on train segments, then the loss of one valid batch."""
+        dyn_state = dataclasses.replace(dyn_state, norm=buffer.norm_stats())
+        loss = None
+        for _ in range(self.cfg.model_updates_per_itr):
+            dyn_state, m = self.model.update(
+                dyn_state, self._sample(buffer, self._draw(buffer, gen,
+                                                           "train")))
+            loss = m["model_loss"]
+        val_loss, _ = self.model.loss(
+            dyn_state.params, dyn_state.norm,
+            self._sample(buffer, self._draw(buffer, gen, "valid")))
+        return dyn_state, {"fit/model_loss_last": loss,
+                           "fit/valid_loss": val_loss}
+
+    # -------------------------------------------------------------- eval --
+    @torch.no_grad()
+    def _eval_step(self, ppo_state: PPOState, dyn_state: DynamicsState,
+                   states, hists, gen: torch.Generator, mode: int):
+        """One control step of the deterministic policy mean, clipped to
+        [-1, 1] → (states, histories, action, obs, reward, done). The
+        history is pushed and not wiped, as in the reference's eval."""
+        act, _ = self._dist(ppo_state.params,
+                            self._obs_z(dyn_state, states.obs, hists))
+        act = torch.clamp(act, -1.0, 1.0)
+        prev_obs = states.obs
+        states, obs, reward, done = self.env.step(states, act, gen, mode)
+        hists = self.model.push_history(dyn_state.params, dyn_state.norm,
+                                        hists, prev_obs, obs - prev_obs, act)
+        return states, hists, act, obs, reward, done
+
+    @torch.no_grad()
+    def evaluate(self, ppo_state: PPOState, dyn_state: DynamicsState,
+                 mode: int, gen: torch.Generator) -> Tensor:
+        """Fresh episodes of ``eval_envs`` envs on dynamics range ``mode``
+        for exactly ``env.horizon`` steps → returns (eval_envs,); each stops
+        accumulating at its env's first done."""
+        env, n = self.env, self.cfg.eval_envs
+        states = env.reset(gen, n, mode)
+        hists = batched_history(self.model.cfg, n, env.device)
+        ret = torch.zeros(n, device=env.device)
+        alive = torch.ones(n, device=env.device)
+        for _ in range(env.horizon):
+            states, hists, _, _, reward, done = self._eval_step(
+                ppo_state, dyn_state, states, hists, gen, mode)
+            ret = ret + reward * alive
+            alive = alive * (1.0 - done.float())
+        return ret
+
+    # ------------------------------------------------------- checkpoint --
+    @staticmethod
+    def checkpoint_payload(env_states, hists, buffer, ppo_state, dyn_state,
+                           gen: torch.Generator, itr: int) -> dict:
+        """The whole training state at the end of iteration ``itr``: the
+        MB trainer's payload plus ``ppo_state``."""
+        return {"ppo_state": ppo_state, "state": dyn_state, "buffer": buffer,
+                "env_states": env_states, "hists": hists,
+                "rng": gen.get_state(), "itr": itr}
+
+    # ------------------------------------------------------------ train --
+    def train(self, gen: torch.Generator, logger=None, checkpointer=None,
+              resume: Optional[dict] = None):
+        """Run the outer loop → (PPO state, model state, metric rows).
+
+        A row holds ``itr``, ``collect/mean_episode_return``,
+        ``collect/episodes``, ``collect/rollout_reward_per_env``, the
+        ``ppo/`` and ``fit/`` metrics and the mean and population std of
+        the eval returns per mode, in the reference's order; every
+        iteration evaluates. ``checkpointer`` saves ``checkpoint_payload``
+        after every iteration; ``resume`` (such a payload, as saved or
+        plain) goes on at its ``itr`` + 1.
+        """
+        cfg = self.cfg
+        state = self.init(gen)
+        start_itr = 0
+        if resume is not None:
+            resume = to_plain(resume)
+            state = from_plain(state, [resume[k] for k in (
+                "env_states", "hists", "buffer", "ppo_state", "state")])
+            gen.set_state(resume["rng"].cpu())
+            start_itr = int(resume["itr"]) + 1
+        env_states, hists, buffer, ppo_state, dyn_state = state
+        history = []
+        for itr in range(start_itr, cfg.n_itr):
+            env_states, hists, buffer, traj, last_value = self._collect(
+                gen, env_states, hists, buffer, ppo_state, dyn_state)
+            ep_returns = traj.pop("ep_return").cpu().numpy()
+            ppo_state, ppo_metrics = self._ppo_update(gen, ppo_state, traj,
+                                                      last_value)
+            dyn_state, fit_metrics = self._fit_model(gen, buffer, dyn_state)
+            finished = np.isfinite(ep_returns)
+            metrics = {
+                "itr": itr,
+                "collect/mean_episode_return": (
+                    float(ep_returns[finished].mean()) if finished.any()
+                    else math.nan),
+                "collect/episodes": int(finished.sum()),
+                "collect/rollout_reward_per_env": float(
+                    traj["reward"].sum(0).mean()),
+                **{k: float(v) for k, v in ppo_metrics.items()},
+                **{k: float(v) for k, v in fit_metrics.items()},
+            }
+            for mode in cfg.eval_modes:
+                returns = self.evaluate(ppo_state, dyn_state, mode, gen)
+                metrics[f"eval/return_mode{mode}"] = float(returns.mean())
+                metrics[f"eval/return_mode{mode}_std"] = float(
+                    returns.std(correction=0))
+            history.append(metrics)
+            if logger is not None:
+                for k, v in metrics.items():
+                    logger.logkv(k, v)
+                logger.dumpkvs()
+            if checkpointer is not None:
+                checkpointer.save(itr, self.checkpoint_payload(
+                    env_states, hists, buffer, ppo_state, dyn_state, gen, itr))
+        return ppo_state, dyn_state, history

@@ -7,8 +7,10 @@ ensemble adds the ``max_logvar``/``min_logvar`` vectors), so conversion is a
 dtype/device copy of every leaf, no transposes. Nested dicts come across as
 they are: ReBAL's encoder ``{"gru": {"z"|"r"|"h": {"wx", "wh", "b"}},
 "proj": [...]}`` and GrBAL's ``{"net": [...]}``. The Adam moments of optax's
-``ScaleByAdamState`` are trees of the same shape. Pass numpy arrays (e.g.
-``jax.tree.map(np.asarray, params)``); this module does not import jax.
+``ScaleByAdamState`` are trees of the same shape. The PPO
+trainer's state carries across the same way (``ppo_state_from_jax``). Pass
+numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``); this module does
+not import jax.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from cadm_tpu_torch.core.types import resolve_device
 from cadm_tpu_torch.models.dynamics import AdamState, NormStats
+from cadm_tpu_torch.train.ppo import PPOState
 
 NORM_FIELDS = ("obs_mean", "obs_std", "act_mean", "act_std", "dobs_mean",
                "dobs_std")
@@ -52,3 +55,13 @@ def adam_state_from_jax(adam_np: Any, device="cuda") -> AdamState:
     return AdamState(int(np.asarray(adam_np.count)),
                      _to_torch(adam_np.mu, device),
                      _to_torch(adam_np.nu, device))
+
+
+def ppo_state_from_jax(ppo_np: Any, device="cuda") -> PPOState:
+    """The port's ``PPOState`` from the JAX one (leaves as numpy): its
+    ``params`` ``{"policy": [...], "log_std", "value": [...]}``, the Adam
+    state of its ``chain(clip, adam)`` at ``opt_state[1][0]``, ``updates``."""
+    device = resolve_device(device)
+    return PPOState(_to_torch(ppo_np.params, device),
+                    adam_state_from_jax(ppo_np.opt_state[1][0], device),
+                    int(np.asarray(ppo_np.updates)))

@@ -35,22 +35,35 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    for the cheetah's three baselines (stacked, ReBAL, GrBAL);
 6. a toy-width fit of the same five, 20 model updates on the card against
    the same 20 on the CPU: same starting weights, same segment batches;
+   and ``hopper_ppo_cadm`` at toy width (heads 16×16, policy 8×8, 4 envs,
+   rollout 8) on the card against the CPU: one collect, one PPO update,
+   one fit and one eval step from the same start states, weights, ε,
+   permutations and segment indices;
 7. the training path at full width through the CLI
    (``cadm_tpu_torch.cli.run.main``), cut in depth only: 2 iterations
    (random collect, then planned) of 20 control steps, 10-step episodes, for
    ``halfcheetah_cadm_cem`` (2048 envs, 4×200 heads, a 20000-column ring,
    batch 256, CEM 200×30×5), ``cripple_ant_cadm_ensemble_cem`` (1024
-   envs, 5 members, the same ring, batch and CEM, TS1) and the cheetah's
+   envs, 5 members, the same ring, batch and CEM, TS1), the cheetah's
    stacked, ReBAL and GrBAL at the result matrix's configuration (256 envs,
    CEM 256×30×5 warm-started, an 8000-column ring, batch 256, eval 32 envs
-   every 3 iterations; GrBAL's net 3×200). Checks the log, the fit metrics
-   (``logvar_bound_penalty`` of the ensemble included; GrBAL's valid MSE
-   NaN, as the reference's), the episode counts and K1/K2 launches =
-   frame_skip × every control step;
+   every 3 iterations; GrBAL's net 3×200) and the analytic presets
+   ``cartpole_vanilla_rs`` (8 envs, RS 500×20, the fixed fit) and
+   ``pendulum_cadm_cem`` (8 envs, CEM 200×20×5). Checks the log, the fit
+   metrics (``logvar_bound_penalty`` of the ensemble included; GrBAL's valid
+   MSE NaN, as the reference's), the episode counts and K1/K2 launches =
+   frame_skip × every control step (0 on the analytic envs). Then PPO +
+   CaDM: ``hopper_ppo_cadm`` and ``slim_humanoid_ppo_cadm`` at the presets'
+   width (128 envs, rollout 256, policy 64×64, heads 4×200, model batch
+   256, a 4096-column ring, eval 16 envs), 2 iterations of 100-step
+   episodes: the PPO row, finite ``ppo/`` and ``fit/`` values, ``updates`` =
+   itr × epochs × minibatches, K1/K2 launches = frame_skip × (collect +
+   eval steps);
 8. resume: the matrix's cheetah CaDM for 3 iterations with ``--checkpoint``,
    then ``--resume`` from step 1 in a new process state (trainer,
    generator): its itr 2 row equals the uninterrupted run's bit for bit;
-   the checkpoint's size and save/restore seconds;
+   the checkpoint's size and save/restore seconds; the same for
+   ``hopper_ppo_cadm`` at the width of phase 7;
 9. the trajectory dump: one iteration of the same with ``--dump-trajs``;
    ``read_trajfile`` gives back itr0/obs|act|next_obs equal to the ring's
    columns, 0 records dropped;
@@ -120,7 +133,20 @@ TRAIN_KEYS = [
     "eval/return_mode1", "eval/return_mode1_std",
     "eval/return_mode2", "eval/return_mode2_std",
 ]
+# the fixed fit's row (cartpole_vanilla_rs)
+FIXED_TRAIN_KEYS = [k for k in TRAIN_KEYS if k not in (
+    "fit/epochs_run", "fit/valid_monitored_best")]
 TRAIN_DEPTH = ["--n-itr", "2", "--steps-per-itr", "20", "--env-horizon", "10"]
+# the reference PPO trainer's row (cadm_tpu/train/ppo.py:421-440)
+PPO_KEYS = [
+    "itr", "collect/mean_episode_return", "collect/episodes",
+    "collect/rollout_reward_per_env", "ppo/loss_first", "ppo/loss_last",
+    "fit/model_loss_last", "fit/valid_loss",
+    "eval/return_mode0", "eval/return_mode0_std",
+    "eval/return_mode1", "eval/return_mode1_std",
+    "eval/return_mode2", "eval/return_mode2_std",
+]
+PPO_DEPTH = ["--n-itr", "2", "--env-horizon", "100"]
 # The cheetah's row of the result matrix (RESULTS.md:14-16 for the
 # baselines): FAMILY_BASE["half_cheetah"] of scripts/run_matrix.py:56-61 and
 # its MODEL_VARIANTS (:103, :155-157), which run_matrix puts on a bare
@@ -144,6 +170,8 @@ MAIN_PATH_SYSTEMS = (("half_cheetah", 2048), ("hopper", 512), ("ant", 1024),
 # the training paths (phase 7) and the acting paths with their env counts
 # (phase 10); phases 5 and 6 run the training presets at toy width
 TRAIN_PRESETS = ("halfcheetah_cadm_cem", "cripple_ant_cadm_ensemble_cem")
+ANALYTIC_PRESETS = ("cartpole_vanilla_rs", "pendulum_cadm_cem")
+PPO_PRESETS = ("hopper_ppo_cadm", "slim_humanoid_ppo_cadm")
 ACT_PRESETS = (("halfcheetah_cadm_cem", 2048), ("slim_humanoid_cadm_cem", 512),
                ("hopper_cadm_cem", 512))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 and FP64 FLOP/s
@@ -708,6 +736,85 @@ def check_toy_fit(PRESETS, preset="halfcheetah_cadm_cem",
                              f"disagrees with the CPU")
 
 
+TOY_PPO = dict(hidden=(16, 16), policy_hidden=(8, 8), n_envs=4,
+               rollout_len=8, eval_envs=4, env_horizon=20, batch_size=16,
+               buffer_capacity=64, model_updates_per_itr=FIT_STEPS)
+
+
+def run_toy_ppo(cfg, device, start, noise, perms, fit_idx):
+    """One collect, one PPO update, one fit and one eval step of ``cfg`` on
+    ``device`` from the CPU start state ``start`` (env states, histories,
+    ring, PPO state, model state), with the collect's ε, the update's
+    permutations and the fit's segment indices given (``fit_idx`` None:
+    drawn here and returned)."""
+    from cadm_tpu_torch.core.types import tree_leaves, tree_map
+
+    _, _, _, tr = cfg.build(device)
+    # copies: the collect writes the ring in place
+    to = lambda t: tree_map(lambda x: x.to(device, copy=True), t)  # noqa: E731
+    states, hists, buf, ps, dyn = to(start)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    states, hists, buf, traj, last = tr._collect(gen, states, hists, buf, ps,
+                                                 dyn, noise=noise.to(device))
+    if traj["done"].any():
+        raise AssertionError("toy PPO: an episode ended inside the collect "
+                             "(its reset draws differ between devices)")
+    ps, ppo_m = tr._ppo_update(gen, ps, traj, last, perms=perms.to(device))
+    drawn, draw = [], tr._draw
+    if fit_idx is None:
+        tr._draw = lambda *a: drawn.append(draw(*a)) or drawn[-1]
+    else:
+        it = iter(fit_idx)
+        tr._draw = lambda *a: to(next(it))
+    dyn, fit_m = tr._fit_model(gen, buf, dyn)
+    _, _, ev_act, ev_obs, _, _ = tr._eval_step(ps, dyn, states, hists, gen, 0)
+    cpu = lambda x: x.detach().cpu()  # noqa: E731
+    return dict(
+        actions=[cpu(traj["act"]), cpu(ev_act)],
+        obs=[cpu(traj["obs_z"]), cpu(buf.next_obs), cpu(ev_obs)],
+        params=[cpu(x) for x in tree_leaves(ps.params)
+                + tree_leaves(dyn.params)],
+        losses=np.array([float(v) for v in (*ppo_m.values(),
+                                            *fit_m.values())]),
+        updates=(ps.updates, dyn.updates)), drawn
+
+
+def check_toy_ppo(PRESETS, preset="hopper_ppo_cadm"):
+    """PPO + CaDM at toy width on the card against the CPU: the same start
+    state and weights (made on the CPU), ε, permutations and segment
+    indices; actions and obs within SLICE_ATOL, weights within FIT_ATOL,
+    losses within FIT_LOSS_RTOL."""
+    cfg = dataclasses.replace(PRESETS[preset], **TOY_PPO)
+    env, _, _, tr = cfg.build("cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    start = tr.init(gen)
+    noise = torch.randn(cfg.rollout_len, cfg.n_envs, env.act_dim,
+                        generator=gen)
+    n = cfg.rollout_len * cfg.n_envs
+    perms = torch.stack([torch.randperm(n, generator=gen)
+                         for _ in range(cfg.ppo_epochs)])
+    cpu, fit_idx = run_toy_ppo(cfg, "cpu", start, noise, perms, None)
+    gpu, _ = run_toy_ppo(cfg, "cuda", start, noise, perms, fit_idx)
+    err = {k: max((a - b).abs().max().item() for a, b in zip(cpu[k], gpu[k]))
+           for k in ("actions", "obs", "params")}
+    err["losses"] = float(np.max(np.abs(cpu["losses"] - gpu["losses"])
+                                 / np.maximum(np.abs(cpu["losses"]), 1e-30)))
+    print(f"toy PPO {preset} ({cfg.env}, policy {cfg.policy_hidden}, heads "
+          f"{cfg.hidden}, {cfg.n_envs} envs, rollout {cfg.rollout_len}, "
+          f"{cfg.ppo_epochs}×{cfg.ppo_minibatches} PPO steps, {FIT_STEPS} "
+          f"model updates) card vs cpu: max_abs_err actions "
+          f"{err['actions']:.3e}, obs {err['obs']:.3e} (atol {SLICE_ATOL}), "
+          f"params {err['params']:.3e} (atol {FIT_ATOL}), losses rel "
+          f"{err['losses']:.3e} (rtol {FIT_LOSS_RTOL}); losses "
+          f"{cpu['losses'].round(4).tolist()}; updates {gpu['updates']}")
+    if not (err["actions"] <= SLICE_ATOL and err["obs"] <= SLICE_ATOL
+            and err["params"] <= FIT_ATOL and err["losses"] <= FIT_LOSS_RTOL
+            and cpu["updates"] == gpu["updates"]
+            and np.isfinite(cpu["losses"]).all()):
+        raise AssertionError(f"toy PPO {preset} on the card disagrees with "
+                             f"the CPU: {err}")
+
+
 # ------------------------------------------- phase 7: full-width training --
 @contextlib.contextmanager
 def timed(cls, names, log):
@@ -813,7 +920,8 @@ def run_training(pgs, fk_kernel, tag, argv):
     gc.collect()  # an earlier path's trainer and ring, held by a cycle
     held = torch.cuda.memory_allocated()
     with tempfile.TemporaryDirectory() as tmp, \
-            timed(MBTrainer, ("_collect", "_fit_epochs_impl", "evaluate"), log), \
+            timed(MBTrainer, ("_collect", "_fit_epochs_impl", "_fit_impl",
+                              "evaluate"), log), \
             last_output(Dynamics, "update", last_update), \
             last_output(GrBAL, "update", last_update):
         torch.cuda.reset_peak_memory_stats()
@@ -828,9 +936,10 @@ def run_training(pgs, fk_kernel, tag, argv):
 
     n_envs, steps, horizon = cfg.n_envs, cfg.steps_per_itr, cfg.env_horizon
     collects = [(s, a[6]) for n, s, a, _ in log if n == "_collect"]
-    frame_skip = log[0][2][0].env.frame_skip   # args[0] is the trainer
+    # args[0] is the trainer; an analytic env has no substeps and no kernel
+    frame_skip = getattr(log[0][2][0].env, "frame_skip", 0)
     fits = [(s, o[0].updates - a[3].updates) for n, s, a, o in log
-            if n == "_fit_epochs_impl"]
+            if n in ("_fit_epochs_impl", "_fit_impl")]
     evals = [s for n, s, _, _ in log if n == "evaluate"]
     for itr, ((c_s, random), (f_s, updates)) in enumerate(zip(collects, fits)):
         kind = (f"random collect {n_envs * steps / c_s:.1f} env steps/s"
@@ -845,7 +954,9 @@ def run_training(pgs, fk_kernel, tag, argv):
           f"(torch.cuda.max_memory_allocated, {cfg.buffer_capacity}-column "
           f"ring, {n_envs} envs; {held / 2**30:.2f} GiB held before the run)")
 
-    if len(rows) != cfg.n_itr or list(rows[0]) != TRAIN_KEYS:
+    epochs = cfg.fit_protocol == "epochs"
+    keys = TRAIN_KEYS if epochs else FIXED_TRAIN_KEYS
+    if len(rows) != cfg.n_itr or list(rows[0]) != keys:
         raise AssertionError(f"{tag} progress.csv: {len(rows)} rows, keys "
                              f"{list(rows[0]) if rows else None}")
     metrics = {k: v.item() for k, v in last_update[0][1].items()}
@@ -858,13 +969,13 @@ def run_training(pgs, fk_kernel, tag, argv):
     eval_itrs = evaluating_itrs(cfg)
     for row in rows:
         itr = int(row["itr"])
-        bad = [k for k in TRAIN_KEYS if k.startswith("fit/")
+        bad = [k for k in keys if k.startswith("fit/")
                and math.isfinite(float(row[k])) == (
                    nan_mse and k == "fit/valid_fwd_mse_after")]
         if bad:
             raise AssertionError(f"{tag} itr {itr}: fit metrics {bad} "
                                  f"{'finite' if nan_mse else 'not finite'}")
-        if not 1 <= float(row["fit/epochs_run"]) <= cfg.max_epochs:
+        if epochs and not 1 <= float(row["fit/epochs_run"]) <= cfg.max_epochs:
             raise AssertionError(f"{tag} itr {itr}: epochs_run "
                                  f"{row['fit/epochs_run']}")
         has_eval = row["eval/return_mode0"] != ""
@@ -876,7 +987,7 @@ def run_training(pgs, fk_kernel, tag, argv):
         episodes = float(row["collect/episodes"])
         print(f"{tag} itr {itr}: episodes {episodes:.0f} "
               f"({episodes - 2 * n_envs:.0f} ended early), epochs_run "
-              f"{row['fit/epochs_run']}, valid loss "
+              f"{row.get('fit/epochs_run', 'n/a (fixed fit)')}, valid loss "
               f"{float(row['fit/valid_loss_before']):.4f} → "
               f"{float(row['fit/valid_loss_after']):.4f}, {returns}")
         if episodes < steps // horizon * n_envs:
@@ -894,6 +1005,91 @@ def run_training(pgs, fk_kernel, tag, argv):
         raise AssertionError(f"{tag}: unexpected calls: {len(collects)} "
                              f"collects, {len(fits)} fits, {len(evals)} evals")
     check_launches(tag, launched, frame_skip, control_steps(log))
+    return launched
+
+
+def ppo_control_steps(log) -> int:
+    """Control steps of the PPO trainer's ``_collect`` and ``evaluate``
+    calls in a ``timed`` log (args[0] is the trainer)."""
+    return sum(a[0].cfg.rollout_len if n == "_collect" else a[0].env.horizon
+               for n, _, a, _ in log if n in ("_collect", "evaluate"))
+
+
+def run_ppo_training(pgs, fk_kernel, tag, argv):
+    """PPO + CaDM at full width through the CLI with ``argv``, cut in depth
+    by PPO_DEPTH: returns the launches of each kernel in the run."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.train.ppo import PPOTrainer
+
+    argv = [*argv, *PPO_DEPTH]
+    cfg = run.config_from_args(run.build_parser().parse_args(argv))
+    log, result, launched = [], [], []
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp, \
+            timed(PPOTrainer, ("_collect", "_ppo_update", "_fit_model",
+                               "evaluate"), log), \
+            last_output(PPOTrainer, "train", result):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with counted(pgs, fk_kernel, launched):
+            history = run.main([*argv, "--log-dir", tmp, "--exp-name", "t"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "t", "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+
+    trainer = log[0][2][0]
+    frame_skip = trainer.env.frame_skip
+    ppo_state = result[0][0]
+    per_update = cfg.ppo_epochs * cfg.ppo_minibatches
+    secs = {n: [s for m, s, _, _ in log if m == n] for n in
+            ("_collect", "_ppo_update", "_fit_model", "evaluate")}
+    for itr in range(cfg.n_itr):
+        c_s, u_s, f_s = (secs[n][itr] for n in ("_collect", "_ppo_update",
+                                                 "_fit_model"))
+        print(f"{tag} itr {itr}: collect {1e3 * c_s / cfg.rollout_len:.2f} ms "
+              f"per control step at {cfg.n_envs} envs "
+              f"({cfg.n_envs * cfg.rollout_len / c_s:.1f} env steps/s, "
+              f"{c_s:.2f} s); PPO {per_update} minibatch steps in {u_s:.2f} s"
+              f" = {per_update / u_s:.1f} updates/s; fit "
+              f"{cfg.model_updates_per_itr} updates in {f_s:.2f} s = "
+              f"{cfg.model_updates_per_itr / f_s:.1f} updates/s")
+    horizon = trainer.env.horizon
+    print(f"{tag}: {len(secs['evaluate'])} evals of {horizon} control steps "
+          f"at {cfg.eval_envs} envs, "
+          f"{1e3 * sum(secs['evaluate']) / (horizon * len(secs['evaluate'])):.2f}"
+          f" ms per control step; wall {wall:.1f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated, "
+          f"{cfg.buffer_capacity}-column ring, {cfg.n_envs} envs; "
+          f"{held / 2**30:.2f} GiB held before the run)")
+
+    if len(rows) != cfg.n_itr or list(rows[0]) != PPO_KEYS or \
+            len(history) != cfg.n_itr:
+        raise AssertionError(f"{tag} progress.csv: {len(rows)} rows, keys "
+                             f"{list(rows[0]) if rows else None}")
+    for row in rows:
+        bad = [k for k in PPO_KEYS[4:] if not math.isfinite(float(row[k]))]
+        episodes = float(row["collect/episodes"])
+        print(f"{tag} itr {row['itr']}: episodes {episodes:.0f}, PPO loss "
+              f"{float(row['ppo/loss_first']):.4f} → "
+              f"{float(row['ppo/loss_last']):.4f}, model loss "
+              f"{float(row['fit/model_loss_last']):.4f}, valid "
+              f"{float(row['fit/valid_loss']):.4f}, eval returns " + " / ".join(
+                  f"{float(row[f'eval/return_mode{m}']):.3f}"
+                  for m in cfg.eval_modes))
+        if bad or episodes < cfg.rollout_len // horizon * cfg.n_envs:
+            raise AssertionError(f"{tag} itr {row['itr']}: not finite {bad}, "
+                                 f"episodes {episodes}")
+    if ppo_state.updates != cfg.n_itr * per_update or \
+            [len(v) for v in secs.values()] != [cfg.n_itr] * 3 + [
+                cfg.n_itr * len(cfg.eval_modes)]:
+        raise AssertionError(f"{tag}: {ppo_state.updates} PPO updates, calls "
+                             f"{[len(v) for v in secs.values()]}")
+    print(f"{tag}: PPO updates {ppo_state.updates} = {cfg.n_itr} itr × "
+          f"{cfg.ppo_epochs} epochs × {cfg.ppo_minibatches} minibatches")
+    check_launches(tag, launched, frame_skip, ppo_control_steps(log))
     return launched
 
 
@@ -948,6 +1144,46 @@ def run_resume(pgs, fk_kernel):
     if differ or a.keys() != b.keys():
         raise AssertionError(f"resume: itr 2 differs after resume: {differ}")
     check_launches("resume cadm", launched, frame_skip, control_steps(log))
+    return launched
+
+
+def run_ppo_resume(pgs, fk_kernel, preset="hopper_ppo_cadm"):
+    """``preset`` at the width of phase 7 through the CLI: 3 iterations with
+    ``--checkpoint``, then (the last step removed) ``--resume`` from step
+    1 with a new trainer and generator; its itr 2 row must equal the
+    uninterrupted run's bit for bit. Returns the launches of the two
+    runs."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.train.ppo import PPOTrainer
+
+    argv = ["--preset", preset, "--n-itr", "3", "--env-horizon", "100",
+            "--exp-name", "r"]
+    log, launched = [], []
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp, \
+            timed(PPOTrainer, ("_collect", "evaluate"), log), \
+            counted(pgs, fk_kernel, launched):
+        full = run.main([*argv, "--log-dir", tmp, "--checkpoint"])
+        ck = os.path.join(tmp, "r", "checkpoints")
+        sizes = {f: os.path.getsize(os.path.join(ck, f))
+                 for f in sorted(os.listdir(ck))}
+        os.remove(os.path.join(ck, "step_2.pt"))
+        resumed = run.main([*argv, "--log-dir", tmp, "--resume"])
+        torch.cuda.synchronize()
+    a, b = full[2], resumed[0]
+    differ = {k: (a[k], b.get(k)) for k in a
+              if not (a[k] == b.get(k) or (isinstance(a[k], float)
+                                           and math.isnan(a[k])
+                                           and math.isnan(b.get(k))))}
+    print(f"resume {preset}: checkpoint files {sizes} bytes; itr 2 resumed "
+          f"from step 1 vs uninterrupted, {len(a)} columns: {len(differ)} "
+          f"differ {differ}")
+    if [r["itr"] for r in full] != [0, 1, 2] or \
+            [r["itr"] for r in resumed] != [2] or differ or a.keys() != b.keys():
+        raise AssertionError(f"resume {preset}: itrs {[r['itr'] for r in full]}"
+                             f" then {[r['itr'] for r in resumed]}, {differ}")
+    check_launches(f"resume {preset}", launched, log[0][2][0].env.frame_skip,
+                   ppo_control_steps(log))
     return launched
 
 
@@ -1085,15 +1321,20 @@ def main() -> int:
     for name in BASELINES:
         check_toy_slice(PRESETS, **MATRIX_MODELS[name])
         check_toy_fit(PRESETS, **MATRIX_MODELS[name])
+    check_toy_ppo(PRESETS)
     # every path starts with the counts at 0 and reads them at its end
     paths = {f"train {p}": run_training(pgs, fk_kernel, f"train {p}",
                                         ["--preset", p])
-             for p in TRAIN_PRESETS}
+             for p in TRAIN_PRESETS + ANALYTIC_PRESETS}
     for name in BASELINES:
         paths[f"train half_cheetah {name}"] = run_training(
             pgs, fk_kernel, f"train half_cheetah {name} (matrix)",
             matrix_argv(name))
+    for p in PPO_PRESETS:
+        paths[f"train {p}"] = run_ppo_training(pgs, fk_kernel, f"train {p}",
+                                               ["--preset", p])
     paths["resume half_cheetah cadm"] = run_resume(pgs, fk_kernel)
+    paths["resume hopper_ppo_cadm"] = run_ppo_resume(pgs, fk_kernel)
     paths["dump half_cheetah cadm"] = run_dump(pgs, fk_kernel)
     step_ms = {}
     for preset, n in ACT_PRESETS:

@@ -11,7 +11,10 @@ import torch
 from cadm_tpu_torch import envs
 from cadm_tpu_torch.cli import run
 from cadm_tpu_torch.cli.presets import PRESETS, ExperimentConfig
+from cadm_tpu_torch.envs.cartpole import CartPoleEnv
+from cadm_tpu_torch.envs.wrappers import NormalizedEnv
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
+from cadm_tpu_torch.train.ppo import PPOTrainer
 from cadm_tpu_torch.utils.convert import params_from_jax
 
 # The reference trainer's row (cadm_tpu/train/mb_trainer.py:556-566): its
@@ -102,19 +105,35 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
             call()
 
 
-# ------------------------------------------------- the rigid presets ------
+# ------------------------------------------------------- the presets ------
 TOY = dict(hidden=(8, 8), n_envs=2, eval_envs=2, n_candidates=6,
            plan_horizon=2, cem_iters=1, cem_elites=2, buffer_capacity=10,
            env_horizon=2)
+MB_PRESETS = sorted(k for k, v in PRESETS.items() if v.trainer == "mb")
+PPO_PRESETS = sorted(k for k, v in PRESETS.items() if v.trainer == "ppo")
 
 
-@pytest.mark.parametrize("name", sorted(PRESETS))
-def test_every_rigid_preset_builds_on_the_cpu_with_the_reference_values(name):
+def assert_reference_values(name):
     from cadm_tpu.cli.presets import PRESETS as JAX_PRESETS
 
     cfg, ref = PRESETS[name], JAX_PRESETS[name]
     for f in dataclasses.fields(ExperimentConfig):
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    return cfg
+
+
+def test_the_port_has_every_preset_of_the_reference():
+    from cadm_tpu.cli.presets import PRESETS as JAX_PRESETS
+
+    assert sorted(PRESETS) == sorted(JAX_PRESETS)
+    assert PPO_PRESETS == ["hopper_ppo_cadm", "slim_humanoid_ppo_cadm"]
+
+
+@pytest.mark.parametrize("name", MB_PRESETS)
+def test_every_rigid_preset_builds_on_the_cpu_with_the_reference_values(name):
+    """Every model-based preset (the analytic cartpole and pendulum ones
+    too) has the reference's values, builds on the CPU and evaluates."""
+    cfg = assert_reference_values(name)
     env, model, planner, trainer = dataclasses.replace(cfg, **TOY).build("cpu")
     assert env.horizon == 2 and model.cfg.n_members == cfg.ensemble
     assert model.cfg.probabilistic == (cfg.ensemble > 1)
@@ -122,6 +141,33 @@ def test_every_rigid_preset_builds_on_the_cpu_with_the_reference_values(name):
     gen = torch.Generator().manual_seed(0)
     returns = trainer.evaluate(trainer.init(gen)[3], 1, gen)
     assert returns.shape == (2,) and torch.isfinite(returns).all()
+
+
+def ppo_evaluates(cfg):
+    """Build a PPO config on the CPU and evaluate its initial policy."""
+    env, model, planner, trainer = cfg.build("cpu")
+    assert planner is None and isinstance(trainer, PPOTrainer)
+    gen = torch.Generator().manual_seed(0)
+    *_, ppo_state, dyn_state = trainer.init(gen)
+    returns = trainer.evaluate(ppo_state, dyn_state, 1, gen)
+    assert returns.shape == (2,) and torch.isfinite(returns).all()
+    return env, model, trainer
+
+
+@pytest.mark.parametrize("name", PPO_PRESETS)
+def test_every_ppo_preset_builds_on_the_cpu_with_the_reference_values(name):
+    """The PPO + CaDM presets: the reference's values, PPO knobs carried
+    into PPOConfig, no planner; the toy build evaluates on the CPU."""
+    cfg = assert_reference_values(name)
+    env, model, trainer = ppo_evaluates(dataclasses.replace(
+        cfg, **TOY, policy_hidden=(8, 8)))
+    assert model.cfg.context == "encoder" and env.horizon == 2
+    full = cfg.build("cpu")[3].cfg
+    assert (full.n_envs, full.rollout_len, full.n_itr, full.policy_hidden,
+            full.lr, full.ppo_epochs, full.minibatches,
+            full.model_updates_per_itr, full.model_batch,
+            full.buffer_capacity, full.eval_envs, full.eval_modes) == (
+        128, 256, 60, (64, 64), 3e-4, 10, 8, 200, 256, 4096, 16, (0, 1, 2))
 
 
 def test_cripple_ant_cli_run_writes_the_reference_columns(tmp_path):
@@ -152,28 +198,36 @@ def test_cripple_ant_cli_run_writes_the_reference_columns(tmp_path):
     dict(env="pendulum"), dict(ensemble_eval="assign"),
 ])
 def test_unported_options_raise_and_name_what_is_ported(override):
-    """What is still unported raises and names what is ported; the baseline
-    models (stacked, ReBAL, GrBAL) are ported and build and evaluate."""
+    """What is still unported (the winner's-curse ``ensemble_eval``) raises
+    and names what is ported; everything else here is ported and builds
+    and evaluates: the baselines (stacked, ReBAL, GrBAL), PPO, the
+    NormalizedEnv wrapper and the analytic envs."""
     cfg = dataclasses.replace(PRESETS["hopper_cadm_cem"], **TOY, **override)
-    if override.get("model") not in ("stacked", "rnn", "grbal"):
+    if "ensemble_eval" in override:
         with pytest.raises(NotImplementedError, match="ported"):
             cfg.build("cpu")
         return
-    _, model, _, trainer = cfg.build("cpu")
+    if cfg.trainer == "ppo":
+        ppo_evaluates(dataclasses.replace(cfg, policy_hidden=(8, 8)))
+        return
+    env, model, _, trainer = cfg.build("cpu")
     gen = torch.Generator().manual_seed(0)
     returns = trainer.evaluate(trainer.init(gen)[3], 0, gen)
     assert returns.shape == (2,) and torch.isfinite(returns).all()
+    assert isinstance(env, NormalizedEnv) == cfg.normalize_env
+    assert env.obs_dim == {"cartpole": 5, "pendulum": 3}.get(cfg.env, 11)
     if cfg.model == "grbal":
         assert model.cfg.hidden == (8, 8)
-    else:
+    elif cfg.model != "cadm":
         assert model.cfg.context == cfg.model
 
 
 def test_the_default_config_is_the_references_cartpole():
-    """A bare ExperimentConfig names cartpole, as the reference's; cartpole
-    is not ported, so building it raises and says so."""
+    """A bare ExperimentConfig names cartpole, as the reference's, and
+    builds a CaDM + CEM cartpole."""
     from cadm_tpu.cli.presets import ExperimentConfig as JaxExperimentConfig
 
     assert ExperimentConfig().env == JaxExperimentConfig().env == "cartpole"
-    with pytest.raises(NotImplementedError, match="cartpole"):
-        ExperimentConfig().build("cpu")
+    env, model, planner, _ = ExperimentConfig().build("cpu")
+    assert isinstance(env, CartPoleEnv) and env.obs_dim == 5
+    assert model.cfg.context == "encoder" and planner.cfg.kind == "cem"

@@ -236,7 +236,7 @@ def test_planner_evaluate_matches_the_reference_mapped_over_envs():
 
 
 def test_grbal_full_trainer_loop_on_the_cheetah():
-    """As tests/test_grbal.py's loop (cartpole is not ported): GrBAL as the
+    """As tests/test_grbal.py's loop, on the cheetah here: GrBAL as the
     trainer's model, adapted context and MPC end to end; the valid MSE is
     NaN (GrBAL reports none), as in the reference."""
     cfg = dataclasses.replace(

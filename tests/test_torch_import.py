@@ -4,9 +4,12 @@ machine has none of them) and without the JAX package.
 Runs in a subprocess because this suite's conftest imports jax: there those
 modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
 ``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
-baselines, the checkpointer and the trajectory sink among them), the four
-Systems are loaded from their npz files, the acting slice runs at toy width
-on the CPU, and toy ReBAL and GrBAL runs train, checkpoint and resume.
+baselines, the checkpointer, the trajectory sink, the analytic envs, the
+wrapper, the Sampler and the PPO trainer among them), the four Systems are
+loaded from their npz files, the acting slice runs at toy width on the CPU,
+toy ReBAL and GrBAL runs train, checkpoint and resume, a bare config builds
+the reference's default cartpole, and a toy PPO + CaDM run and a Sampler
+run on the CPU.
 """
 import os
 import subprocess
@@ -33,6 +36,9 @@ SCRIPT = textwrap.dedent("""
             "cadm_tpu_torch.models.grbal", "cadm_tpu_torch.planners.grbal_mpc",
             "cadm_tpu_torch.utils.checkpoint", "cadm_tpu_torch.utils.trajsink",
             "cadm_tpu_torch.utils.debug", "cadm_tpu_torch.utils.profiling",
+            "cadm_tpu_torch.envs.cartpole", "cadm_tpu_torch.envs.pendulum",
+            "cadm_tpu_torch.envs.wrappers", "cadm_tpu_torch.train.sampler",
+            "cadm_tpu_torch.train.ppo",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
@@ -86,6 +92,27 @@ SCRIPT = textwrap.dedent("""
             dyn, history = trainer.train(gen, resume=ckpt.restore())
         assert [r["itr"] for r in history] == [1], history
         assert torch.isfinite(torch.tensor(history[0]["eval/return_mode0"]))
+
+    # the default config (cartpole), PPO + CaDM on pendulum, the Sampler
+    from cadm_tpu_torch.cli.presets import ExperimentConfig
+    from cadm_tpu_torch.envs.wrappers import NormalizedEnv
+    from cadm_tpu_torch.train.sampler import ModelSampleProcessor, Sampler
+
+    env, _, _, _ = ExperimentConfig().build("cpu")
+    assert env.obs_dim == 5, env
+    ppo = ExperimentConfig(
+        trainer="ppo", env="pendulum", model="cadm", normalize_env=True,
+        hidden=(8, 8), policy_hidden=(8, 8), n_envs=2, eval_envs=2,
+        eval_modes=(0,), rollout_len=4, env_horizon=3, ppo_epochs=1,
+        ppo_minibatches=2, model_updates_per_itr=2, batch_size=4,
+        buffer_capacity=8, n_itr=1)
+    env, _, _, trainer = ppo.build("cpu")
+    assert isinstance(env, NormalizedEnv)
+    ppo_state, _, history = trainer.train(gen)
+    assert ppo_state.updates == 2 and len(history) == 1, history
+    paths = Sampler(env, 2).obtain_samples(gen, 4, random=True)
+    assert ModelSampleProcessor().process_samples(paths)[
+        "observations"].shape == (8, 3)
 
     if not torch.cuda.is_available():
         try:
