@@ -3,10 +3,12 @@ cadm_tpu/cli/presets.py).
 
 ``ExperimentConfig`` carries the reference's knobs; ``build(device)``
 assembles (env, model, planner, trainer) on one device (the card unless the
-caller asks for the CPU). ``trainer="mb"`` takes ``model`` ∈ {vanilla,
-stacked, cadm, rnn} (one member or a PE-TS ensemble) or ``grbal`` (its net
-takes ``hidden[:3]``); ``trainer="ppo"`` is PPO + CaDM with ``model`` ∈
-{vanilla, stacked, cadm} and no planner. Every env family (cartpole, the
+caller asks for the CPU); ``build(mesh=mesh)`` assembles this rank's on the
+rank's device, its trainer splitting the envs and members over the mesh.
+``trainer="mb"`` takes ``model`` ∈ {vanilla, stacked, cadm, rnn} (one
+member or a PE-TS ensemble) or ``grbal`` (its net takes ``hidden[:3]``);
+``trainer="ppo"`` is PPO + CaDM with ``model`` ∈ {vanilla, stacked, cadm}
+and no planner. Every env family (cartpole, the
 default env as in the reference; pendulum, half_cheetah, hopper, ant,
 cripple_ant, slim_humanoid), optionally wrapped in ``NormalizedEnv``
 (``normalize_env``).
@@ -97,14 +99,21 @@ class ExperimentConfig:
     ppo_minibatches: int = 8
     policy_hidden: Tuple[int, ...] = (64, 64)
 
-    def build(self, device="cuda"):
-        """(env, model, planner, trainer) on ``device``; PPO has no planner
-        (None).
+    def build(self, device=None, mesh=None):
+        """(env, model, planner, trainer) on ``device`` (default ``cuda``);
+        PPO has no planner (None). With a ``parallel.mesh.Mesh`` this rank's,
+        on the mesh's device (``device`` must then be None).
 
         Raises where the port cannot honour the config, including a CUDA
-        device on a machine without one (it never falls back to the CPU).
+        device on a machine without one (it never falls back to the CPU),
+        and (``ValueError``) where the mesh's axes do not divide the envs or
+        the ensemble members.
         """
-        device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("build(mesh=...) runs on the mesh's device: "
+                             "pass no device")
+        device = mesh.device if mesh is not None else resolve_device(
+            device or "cuda")
         if self.n_envs < 1 or self.eval_envs < 1:
             raise ValueError(
                 f"n_envs/eval_envs must be >= 1, got {self.n_envs}/{self.eval_envs}"
@@ -121,10 +130,10 @@ class ExperimentConfig:
         if self.normalize_env:
             env = NormalizedEnv(env)
         if self.trainer == "ppo":
-            return self._build_ppo(env, device)
+            return self._build_ppo(env, device, mesh)
         if self.model == "grbal":
-            return self._build_grbal(env, device)
-        model = self._dynamics(env, device)
+            return self._build_grbal(env, device, mesh)
+        model = self._dynamics(env, device, mesh)
         planner = MPCPlanner(
             PlannerConfig(
                 kind=self.planner,
@@ -144,10 +153,10 @@ class ExperimentConfig:
             obs_limit=env.bad_obs_limit,
         )
         trainer = MBTrainer(env, model, planner,
-                            self._trainer_config(self.symmetry_aug))
+                            self._trainer_config(self.symmetry_aug), mesh)
         return env, model, planner, trainer
 
-    def _dynamics(self, env, device) -> Dynamics:
+    def _dynamics(self, env, device, mesh) -> Dynamics:
         return Dynamics(
             DynamicsConfig(
                 obs_dim=env.obs_dim,
@@ -166,15 +175,16 @@ class ExperimentConfig:
                 detach_logvar_trunk=self.detach_logvar_trunk,
             ),
             device=device,
+            mesh=mesh,
         )
 
-    def _build_ppo(self, env, device):
+    def _build_ppo(self, env, device, mesh):
         """PPO + CaDM as the reference builds it (its context map has no
         'rnn' or 'grbal': those raise ``KeyError``, as there)."""
         if self.model not in PPO_MODELS:
             raise KeyError(f"trainer='ppo' takes model in {PPO_MODELS}, not "
                            f"{self.model!r} (ported: {PORTED})")
-        model = self._dynamics(env, device)
+        model = self._dynamics(env, device, mesh)
         trainer = PPOTrainer(
             env,
             model,
@@ -192,6 +202,7 @@ class ExperimentConfig:
                 eval_envs=self.eval_envs,
                 eval_modes=self.eval_modes,
             ),
+            mesh,
         )
         return env, model, None, trainer
 
@@ -214,9 +225,11 @@ class ExperimentConfig:
             symmetry_aug=symmetry_aug,
         )
 
-    def _build_grbal(self, env, device):
+    def _build_grbal(self, env, device, mesh):
         """GrBAL as the reference builds it: a net of ``hidden[:3]``, its
-        planner without the ensemble knob, no symmetry augmentation."""
+        planner without the ensemble knob, no symmetry augmentation. Its
+        one net has no member axis to split (a mesh's model axis > 1
+        raises)."""
         model = GrBAL(
             GrBALConfig(
                 obs_dim=env.obs_dim,
@@ -243,7 +256,8 @@ class ExperimentConfig:
             bad_transition_fn=env.bad_transition,
             obs_limit=env.bad_obs_limit,
         )
-        trainer = MBTrainer(env, model, planner, self._trainer_config(False))
+        trainer = MBTrainer(env, model, planner, self._trainer_config(False),
+                            mesh)
         return env, model, planner, trainer
 
 

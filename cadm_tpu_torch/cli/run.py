@@ -7,6 +7,8 @@ Examples:
   python -m cadm_tpu_torch.cli.run --env half_cheetah --model grbal \\
       --exp-name cheetah_grbal --checkpoint      # ... and later --resume
   python -m cadm_tpu_torch.cli.run --preset hopper_ppo_cadm   # PPO + CaDM
+  torchrun --standalone --nproc-per-node 4 -m cadm_tpu_torch.cli.run \\
+      --preset halfcheetah_cadm_cem --dp 4                # 4 cards
 
 Presets (the reference's values): cartpole_vanilla_rs, pendulum_cadm_cem,
 halfcheetah_cadm_cem, hopper_cadm_cem, slim_humanoid_cadm_cem,
@@ -25,19 +27,33 @@ process rewrites ``progress.csv`` with its own rows only, as the
 reference's logger does: keep each process's copy. ``--dump-trajs`` streams
 each iteration's transitions to ``trajectories.bin`` (``utils/trajsink.py``);
 under ``--trainer ppo`` it is ignored, as in the reference.
-The reference's mesh flags (``--dp``, ``--model-par``) are not offered
-(argparse rejects them).
+
+``--dp``/``--model-par`` run the experiment on a (dp, model) mesh
+(``parallel/mesh.py``): the envs split over dp ranks, the ensemble members
+over model ranks, one process per rank under ``torchrun`` with
+``--nproc-per-node`` = dp × model-par. With ``--device cuda`` rank r runs on
+card ``LOCAL_RANK`` (nccl), with ``--device cpu`` every rank on the CPU
+(gloo). The rows are those of the same run without a mesh, within float32
+reduction order; rank 0 writes the log and the checkpoints, which resume
+on any layout. ``--dp`` without a launcher, or with another number of
+ranks, raises (it never runs unsharded instead).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import typing
 
 import torch
 
 from cadm_tpu_torch.cli.presets import PRESETS, ExperimentConfig
 from cadm_tpu_torch.core.types import resolve_device
+from cadm_tpu_torch.parallel.mesh import (
+    launched_world_size,
+    make_mesh,
+    writes_files,
+)
 from cadm_tpu_torch.utils.checkpoint import Checkpointer
 from cadm_tpu_torch.utils.logger import TabularLogger
 from cadm_tpu_torch.utils.trajsink import TrajectorySink
@@ -59,6 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dump-trajs", action="store_true",
                    help="stream collected trajectories to the native async "
                         "sink")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel mesh axis: the envs split over this "
+                        "many ranks (0: no mesh; run under torchrun)")
+    p.add_argument("--model-par", type=int, default=1,
+                   help="ensemble-member mesh axis (with --dp)")
     # f.type is a string under `from __future__ import annotations`:
     # resolve the real types, unwrapping Optional/Tuple
     hints = typing.get_type_hints(ExperimentConfig)
@@ -94,33 +115,56 @@ def config_from_args(args) -> ExperimentConfig:
     return dataclasses.replace(cfg, **overrides)
 
 
-def main(argv=None):
-    """Parse ``argv``, train, and return the list of metric rows."""
+def main(argv=None, mesh=None):
+    """Parse ``argv``, train, and return the list of metric rows.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` built by the caller (its device
+    replaces ``--device``, its axes ``--dp``/``--model-par``); without one
+    ``--dp`` builds it from the launcher's environment and closes it at the
+    end."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
+    own_mesh = mesh is None and args.dp > 0
+    if mesh is None and args.model_par != 1 and not args.dp:
+        raise ValueError("--model-par needs --dp (the mesh's dp axis)")
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    if own_mesh:
+        mesh = make_mesh(args.dp, args.model_par, None if device.type == "cuda"
+                         else [device] * launched_world_size())
+        device = mesh.device
+    writes = writes_files(mesh)
 
     exp_name = args.exp_name or (args.preset
                                  or f"{cfg.env}_{cfg.model}_{cfg.planner}")
-    logger = TabularLogger(args.log_dir, exp_name)
-    logger.save_params(dataclasses.asdict(cfg))
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    logger.log(f"device: {device} ({name})")
+    logger = None
+    if writes:
+        logger = TabularLogger(args.log_dir, exp_name)
+        logger.save_params(dataclasses.asdict(cfg))
+        name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+        logger.log(f"device: {device} ({name})"
+                   + ("" if mesh is None else f"; {mesh}"))
 
-    _, _, _, trainer = cfg.build(device)
-    ckpt = (Checkpointer(f"{logger.dir}/checkpoints", map_location=device)
+    _, _, _, trainer = (cfg.build(mesh=mesh) if mesh is not None
+                        else cfg.build(device))
+    exp_dir = os.path.join(args.log_dir, exp_name)
+    # every rank of a mesh joins the gathers of a save or a dump; rank 0
+    # writes the files
+    ckpt = (Checkpointer(f"{exp_dir}/checkpoints", map_location=device,
+                         writes=writes)
             if args.checkpoint or args.resume else None)
     resume = None
     if args.resume and ckpt.latest_step is not None:
         resume = ckpt.restore()
-        logger.log(f"resumed full training state from checkpoint step "
-                   f"{ckpt.latest_step}")
+        if writes:
+            logger.log(f"resumed full training state from checkpoint step "
+                       f"{ckpt.latest_step}")
     sink = None
     if args.dump_trajs and cfg.trainer != "ppo":
         if TrajectorySink.available():
-            sink = TrajectorySink(f"{logger.dir}/trajectories.bin")
-        else:
+            sink = TrajectorySink(f"{exp_dir}/trajectories.bin" if writes
+                                  else os.devnull)
+        elif writes:
             logger.log("native trajsink unavailable; --dump-trajs ignored")
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     try:
@@ -133,10 +177,14 @@ def main(argv=None):
     finally:
         if sink is not None:
             sink.flush()
-            logger.log(f"trajectories.bin: {sink.written} records, "
-                       f"{sink.dropped} dropped")
+            if writes:
+                logger.log(f"trajectories.bin: {sink.written} records, "
+                           f"{sink.dropped} dropped")
             sink.close()
-    logger.log("done.")
+        if own_mesh:
+            mesh.close()
+    if writes:
+        logger.log("done.")
     return history
 
 

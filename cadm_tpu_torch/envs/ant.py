@@ -24,6 +24,7 @@ from cadm_tpu_torch.envs.rigid_base import (
     RigidPhys,
     normalize_root_quat,
 )
+from cadm_tpu_torch.core.rng import randint, randn
 from cadm_tpu_torch.physics.rigid import dynamics as rdyn
 
 Tensor = torch.Tensor
@@ -52,8 +53,7 @@ class AntEnv(RigidEnv):
         qpos0 = torch.as_tensor(ANT_INIT_QPOS, dtype=torch.float32,
                                 device=self.device)
         qpos = qpos0 + uniform(gen, (n, self.sys.nq), -0.1, 0.1)
-        qvel = 0.1 * torch.randn(n, self.sys.nv, generator=gen,
-                                 device=self.device)
+        qvel = 0.1 * randn(gen, n, self.sys.nv)
         return RigidPhys(qpos=normalize_root_quat(qpos), qvel=qvel)
 
     def observe(self, params: PyTree, phys: RigidPhys) -> Tensor:
@@ -78,7 +78,7 @@ class CrippleAntEnv(AntEnv):
     def sample_params(self, gen: torch.Generator, mode: int, n: int
                       ) -> CrippleParams:
         if mode == 0:   # train legs {0, 1, 2}
-            leg = torch.randint(0, 3, (n,), generator=gen, device=self.device)
+            leg = randint(gen, 3, n)
         else:           # the held-out leg
             leg = torch.full((n,), 3, dtype=torch.long, device=self.device)
         legs = torch.as_tensor(LEG_ACTUATORS, device=self.device)[leg]

@@ -8,7 +8,9 @@
   so the planner scores model-predicted states with it.
 
 Randomness comes from the ``torch.Generator`` the caller passes; it must
-live on the env's device.
+live on the env's device. On a mesh the caller passes a
+``core.rng.EnvRows`` instead: every draw is then made for the envs of
+all dp ranks and this rank keeps its block.
 """
 from __future__ import annotations
 
@@ -24,13 +26,15 @@ from cadm_tpu_torch.core.types import (
     resolve_device,
     tree_where,
 )
+from cadm_tpu_torch.core.rng import rand
 
 Tensor = torch.Tensor
 
 
 def uniform(gen: torch.Generator, shape, lo: float, hi: float) -> Tensor:
-    """U(lo, hi) draws of ``shape`` on the generator's device."""
-    u = torch.rand(*shape, generator=gen, device=gen.device)
+    """U(lo, hi) draws of ``shape`` (env axis first) on the generator's
+    device."""
+    u = rand(gen, *shape)
     return lo + (hi - lo) * u
 
 

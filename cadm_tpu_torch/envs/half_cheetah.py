@@ -11,6 +11,7 @@ import torch
 
 from cadm_tpu_torch.core.types import PyTree
 from cadm_tpu_torch.envs.rigid_base import RigidEnv, RigidPhys
+from cadm_tpu_torch.core.rng import rand, randn
 
 Tensor = torch.Tensor
 
@@ -29,8 +30,8 @@ class HalfCheetahEnv(RigidEnv):
         nq, nv = self.sys.nq, self.sys.nv
         qpos0 = torch.as_tensor(self.sys.default_qpos(), dtype=torch.float32,
                                 device=self.device)
-        noise = torch.rand(n, nq, generator=gen, device=self.device)
-        qvel = 0.1 * torch.randn(n, nv, generator=gen, device=self.device)
+        noise = rand(gen, n, nq)
+        qvel = 0.1 * randn(gen, n, nv)
         return RigidPhys(qpos=qpos0 + (0.2 * noise - 0.1), qvel=qvel)
 
     def observe(self, params: PyTree, phys: RigidPhys) -> Tensor:

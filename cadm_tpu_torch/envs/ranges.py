@@ -14,6 +14,8 @@ from typing import Tuple
 
 import torch
 
+from cadm_tpu_torch.core.rng import rand, randint
+
 Tensor = torch.Tensor
 
 
@@ -29,8 +31,7 @@ class ScaleSet:
     def sample(self, gen: torch.Generator, mode: int, n: int) -> Tensor:
         vals = torch.tensor((self.train, self.moderate, self.extreme)[mode],
                             device=gen.device)
-        idx = torch.randint(0, len(vals), (n,), generator=gen,
-                            device=gen.device)
+        idx = randint(gen, len(vals), n)
         return vals[idx]
 
     def scaled(self, base: float) -> "ScaleSet":
@@ -54,12 +55,12 @@ class ScaleRange:
     extreme: Tuple[float, float, float, float]
 
     def sample(self, gen: torch.Generator, mode: int, n: int) -> Tensor:
-        u = torch.rand(n, generator=gen, device=gen.device)
+        u = rand(gen, n)
         if mode == 0:
             lo, hi = self.train
             return u * (hi - lo) + lo
         band = self.moderate if mode == 1 else self.extreme
-        left = torch.rand(n, generator=gen, device=gen.device) < 0.5
+        left = rand(gen, n) < 0.5
         lo = torch.where(left, band[0], band[2])
         hi = torch.where(left, band[1], band[3])
         return u * (hi - lo) + lo

@@ -22,11 +22,16 @@ log-variance heads, the log-variance kept inside learned soft bounds
 default the reference's decoupled form: MSE on the means plus the NLL around
 the frozen means) and bootstrap minibatches per member. The members run as
 one batched product over the member axis, in the loss as in prediction.
+
+On a mesh (``parallel.mesh``) a model rank holds and trains its block of
+the members: its loss terms are its members', the loss and its metrics are
+taken over every member's (gathered over ``model``), and the gradients of
+the shared leaves and the clip's global norm are summed over ``model``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -134,8 +139,16 @@ class AdamState:
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
+def member_leaves(params: dict, member_keys: Sequence[str]) -> List[bool]:
+    """For each leaf of ``tree_leaves(params)``: is it under one of the
+    member-stacked keys?"""
+    return [k in member_keys for k in sorted(params)
+            for _ in tree_leaves(params[k])]
+
+
 def clip_adam_step(params, opt: AdamState, grads: list, lr: float,
-                   grad_clip: float):
+                   grad_clip: float, mesh=None,
+                   member_keys: Sequence[str] = ()):
     """One step of optax's ``chain(clip_by_global_norm(grad_clip),
     adam(lr))`` → (new params, new AdamState); ``grads`` in
     ``tree_leaves(params)`` order.
@@ -145,12 +158,23 @@ def clip_adam_step(params, opt: AdamState, grads: list, lr: float,
     ``torch.nn.utils.clip_grad_norm_``). Adam: μ ← (1−b1)·g + b1·μ,
     ν ← (1−b2)·g² + b2·ν, p ← p − lr·μ̂/(√ν̂ + eps) with the bias
     corrections of step count+1. Returns new tensors.
+
+    With a ``mesh`` whose model axis splits the leaves under
+    ``member_keys``, the norm counts each rank's member block once (summed
+    over ``model``) and each shared leaf once.
     """
     b1, b2 = ADAM_B1, ADAM_B2
     leaves = [p.detach() for p in tree_leaves(params)]
     with torch.no_grad():
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if mesh is None or mesh.model == 1:
+            g_norm = torch.linalg.vector_norm(norms)
+        else:
+            sq = norms.square()
+            heads = torch.tensor(member_leaves(params, member_keys),
+                                 device=sq.device)
+            g_norm = torch.sqrt(mesh.sum([sq[heads].sum()], "model")[0]
+                                + sq[~heads].sum())
         coef = torch.where(g_norm < grad_clip, 1.0, grad_clip / g_norm)
         grads = torch._foreach_mul(grads, coef)
         mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
@@ -202,12 +226,20 @@ class SegmentBatch:
 class Dynamics:
     """Functional dynamics-model API shared by planners and trainers."""
 
-    def __init__(self, config: DynamicsConfig, device="cuda"):
+    # the member-stacked params: a mesh's model axis splits these
+    member_keys = ("fwd", "bwd")
+
+    def __init__(self, config: DynamicsConfig, device="cuda", mesh=None):
+        """``mesh``: the ``parallel.mesh.Mesh`` whose model axis splits
+        the members (states from ``shard_dynamics_state``), or None."""
         if config.context not in CONTEXTS or config.n_members < 1:
             raise ValueError(f"context must be one of {CONTEXTS} and "
                              f"n_members >= 1, got {config}")
+        if mesh is not None:
+            mesh.local_count(config.n_members, "model", "ensemble members")
         self.cfg = config
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     # ------------------------------------------------------------- init --
     def init_params(self, gen: torch.Generator) -> dict:
@@ -360,18 +392,10 @@ class Dynamics:
         return (c.mean_anchor * ((mean - target) ** 2).sum(-1)
                 + self._nll(mean.detach(), logvar, target))
 
-    def loss(self, params: dict, norm: NormStats, batch: SegmentBatch
-             ) -> Tuple[Tensor, dict]:
-        """Joint CaDM loss over member-indexed segment batches.
-
-        ``batch`` leaves have shape (n_members, B, ...); all members run at
-        once. The context z is computed once per segment and shared by all
-        M future steps; the backward head predicts the previous observation
-        through the negated normalized delta. Each member's steps are
-        weighted by valid/(Σvalid + 1e-8); members are averaged. A
-        probabilistic model adds logvar_penalty·(Σmax_logvar − Σmin_logvar)
-        to the returned loss (not to the ``model_loss`` metric).
-        """
+    def _terms(self, params: dict, norm: NormStats, batch: SegmentBatch
+               ) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+        """(each member's loss, each member's forward-mean MSE, the
+        log-variance bound penalty or None) of the members in ``batch``."""
         c = self.cfg
         z = self.get_context(params, norm, batch.hist_dobs, batch.hist_act,
                              batch.hist_valid)                  # (n, B, ctx)
@@ -389,29 +413,76 @@ class Dynamics:
         # forward-mean error, the planner-relevant model quality
         mses = (((f_mean - target) ** 2).mean(-1) * w).sum((-2, -1))
         losses = (per_step * w).sum((-2, -1))
+        pen = None
+        if c.probabilistic:
+            pen = c.logvar_penalty * (params["max_logvar"].sum()
+                                      - params["min_logvar"].sum())
+        return losses, mses, pen
+
+    def _metrics(self, losses: Tensor, mses: Tensor, pen: Optional[Tensor]
+                 ) -> Tuple[Tensor, dict]:
+        """(loss, metrics) from the member terms: means over every member
+        (gathered over the mesh's model axis), plus the penalty."""
+        if self.mesh is not None:
+            losses, mses = self.mesh.gather([losses, mses], "model")
         total = losses.mean()
         metrics = {"model_loss": total, "fwd_mean_mse": mses.mean()}
-        if c.probabilistic:
-            bound_pen = c.logvar_penalty * (params["max_logvar"].sum()
-                                            - params["min_logvar"].sum())
-            total = total + bound_pen
-            metrics["logvar_bound_penalty"] = bound_pen
+        if pen is not None:
+            total = total + pen
+            metrics["logvar_bound_penalty"] = pen
         return total, metrics
+
+    def loss(self, params: dict, norm: NormStats, batch: SegmentBatch
+             ) -> Tuple[Tensor, dict]:
+        """Joint CaDM loss over member-indexed segment batches.
+
+        ``batch`` leaves have shape (n_members, B, ...); all members run at
+        once. The context z is computed once per segment and shared by all
+        M future steps; the backward head predicts the previous observation
+        through the negated normalized delta. Each member's steps are
+        weighted by valid/(Σvalid + 1e-8); members are averaged. A
+        probabilistic model adds logvar_penalty·(Σmax_logvar − Σmin_logvar)
+        to the returned loss (not to the ``model_loss`` metric). On a mesh
+        ``batch`` holds this rank's members and the loss (which then carries
+        no gradient) is every member's.
+        """
+        return self._metrics(*self._terms(params, norm, batch))
 
     # ----------------------------------------------------------- update --
     def update(self, state: DynamicsState, batch: SegmentBatch
                ) -> Tuple[DynamicsState, dict]:
         """One ``clip_adam_step`` on the loss of ``batch``. Returns a new
-        state of new tensors."""
+        state of new tensors.
+
+        On a mesh whose model axis splits the members, each rank
+        differentiates its members' share of the loss (the penalty on the
+        first model rank) and the shared leaves' gradients are summed over
+        ``model``."""
+        mesh = self.mesh
+        split = mesh is not None and mesh.model > 1
         live = [p.detach().requires_grad_(True)
                 for p in tree_leaves(state.params)]
         with torch.enable_grad():
-            loss, metrics = self.loss(tree_unflatten(state.params, live),
-                                      state.norm, batch)
-            grads = torch.autograd.grad(loss, live)
+            losses, mses, pen = self._terms(
+                tree_unflatten(state.params, live), state.norm, batch)
+            objective = (losses.sum() / self.cfg.n_members if split
+                         else losses.mean())
+            if pen is not None and not (split and mesh.index("model")):
+                objective = objective + pen
+            grads = list(torch.autograd.grad(objective, live))
+        if split:
+            heads = member_leaves(state.params, self.member_keys)
+            shared = [i for i, h in enumerate(heads) if not h]
+            for i, g in zip(shared, mesh.sum([grads[i] for i in shared],
+                                             "model")):
+                grads[i] = g
+        with torch.no_grad():
+            _, metrics = self._metrics(losses.detach(), mses.detach(),
+                                       None if pen is None else pen.detach())
         params, opt = clip_adam_step(state.params, state.opt_state,
-                                     list(grads), self.cfg.lr,
-                                     self.cfg.grad_clip)
+                                     grads, self.cfg.lr,
+                                     self.cfg.grad_clip, mesh,
+                                     self.member_keys)
         return (
             DynamicsState(params=params, norm=state.norm, opt_state=opt,
                           updates=state.updates + 1),

@@ -72,6 +72,8 @@ def _flatten_members(batch: SegmentBatch) -> SegmentBatch:
 
 
 class GrBAL:
+    member_keys = ()  # one net: nothing for a mesh's model axis to split
+
     def __init__(self, config: GrBALConfig, device="cuda"):
         self.cfg = config
         self.device = resolve_device(device)

@@ -35,6 +35,7 @@ import torch
 
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsState, NormStats
 from cadm_tpu_torch.models.nets import member
+from cadm_tpu_torch.core.rng import rand, randint, randn, trunc_normal
 
 Tensor = torch.Tensor
 RewardFn = Callable[[Tensor, Tensor, Tensor], Tensor]
@@ -118,12 +119,11 @@ class MPCPlanner:
         uniform permutation per env and step (argsort of uniforms, batched);
         'ts1_exact' i.i.d. members (E, H, C); None otherwise."""
         n, h = self.model.cfg.n_members, self.cfg.horizon
-        dev = gen.device
         if n == 1 or self.cfg.ensemble_eval == "mean":
             return None
         if self.cfg.ensemble_eval == "ts1":
-            return torch.rand(e, h, n, generator=gen, device=dev).argsort(-1)
-        return torch.randint(0, n, (e, h, c), generator=gen, device=dev)
+            return rand(gen, e, h, n).argsort(-1)
+        return randint(gen, n, e, h, c)
 
     def _evaluate(self, params: dict, norm: NormStats, obs0: Tensor,
                   z: Tensor, actions: Tensor, gen: Optional[torch.Generator] = None,
@@ -144,8 +144,10 @@ class MPCPlanner:
         def predict(t, obs, act, zz):
             noise = None
             if self.cfg.sample_predictions:
+                # the env axis leads one member's rows, else follows the
+                # member axis
                 noise = pred_noise[t] if pred_noise is not None else \
-                    torch.randn(obs.shape, generator=gen, device=obs.device)
+                    randn(gen, *obs.shape, dim=0 if n == 1 else 1)
             return self.model.predict(params, norm, fwd, obs, act, zz, noise)
 
         if n == 1 or mode == "mean":
@@ -244,7 +246,7 @@ class MPCPlanner:
         shape = (e, cfg.n_candidates, cfg.horizon, self.act_dim)
         if cfg.kind == "rs":
             actions = noise if noise is not None else (
-                2.0 * torch.rand(shape, generator=gen, device=obs.device) - 1.0
+                2.0 * rand(gen, *shape) - 1.0
             )
             returns = self._evaluate(params, norm, obs, z, actions, gen,
                                      members, pred_noise)
@@ -264,9 +266,7 @@ class MPCPlanner:
             if noise is not None:
                 eps = noise[i]
             else:
-                eps = torch.empty(shape, device=obs.device)
-                torch.nn.init.trunc_normal_(eps, 0.0, 1.0, -2.0, 2.0,
-                                            generator=gen)
+                eps = trunc_normal(gen, *shape)
             actions = torch.clamp(mu[:, None] + sigma[:, None] * eps, -1.0, 1.0)
             returns = self._evaluate(
                 params, norm, obs, z, actions, gen,

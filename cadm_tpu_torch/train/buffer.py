@@ -16,6 +16,11 @@ Unlike the reference's immutable pytree, ``append`` writes the ring in place
 split into drawing the indices (``draw_indices``, from a ``torch.Generator``)
 and the gather that takes them (``gather``), so a test can hand both packages
 the same indices.
+
+On a mesh (``parallel.mesh``) each dp rank's ring holds its block of the
+envs: indices are drawn over every env, each rank gathers the segments of
+its own rows and one all-reduce over ``dp`` gives every rank the whole
+batch, and the norm statistics sum over ``dp``.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from cadm_tpu_torch.core.types import tree_map
 from cadm_tpu_torch.models.dynamics import NormStats, SegmentBatch
 
 Tensor = torch.Tensor
@@ -87,21 +93,24 @@ class ReplayBuffer:
         return self.size - self.n_valid_anchors()
 
     def draw_indices(self, gen: torch.Generator, batch_shape: Tuple[int, ...],
-                     split: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+                     split: Optional[str] = None, mesh=None
+                     ) -> Tuple[Tensor, Tensor]:
         """(env_idx, t_idx) of ``batch_shape`` random segment anchors.
 
         ``t_idx`` is the logical column (0 = oldest) of the first future
         step. ``split``: None draws anywhere; "train"/"valid" restrict the
         anchor to its persistent partition (columns ≡ VALID_STRIDE-1 mod
         VALID_STRIDE are validation). Windows may still cross partition
-        columns: the holdout is on anchors, as in the reference.
+        columns: the holdout is on anchors, as in the reference. On a
+        ``mesh`` ``env_idx`` ranges over the envs of every dp rank.
         """
         n_anchors = {None: self.size, "train": self.n_train_anchors(),
                      "valid": self.n_valid_anchors()}
         if split not in n_anchors:
             raise ValueError(f"unknown split: {split!r}")
         dev = self.obs.device
-        env_idx = torch.randint(0, self.n_envs, batch_shape, generator=gen,
+        n_envs = self.n_envs * (1 if mesh is None else mesh.dp)
+        env_idx = torch.randint(0, n_envs, batch_shape, generator=gen,
                                 device=dev)
         u = torch.randint(0, max(n_anchors[split], 1), batch_shape,
                           generator=gen, device=dev)
@@ -118,10 +127,19 @@ class ReplayBuffer:
             return u * s + (s - 1)
         return u
 
-    def gather(self, env_idx: Tensor, t_idx: Tensor, k: int, m: int
-               ) -> SegmentBatch:
-        """The K-history + M-future segments anchored at (env_idx, t_idx)."""
+    def gather(self, env_idx: Tensor, t_idx: Tensor, k: int, m: int,
+               mesh=None) -> SegmentBatch:
+        """The K-history + M-future segments anchored at (env_idx, t_idx).
+
+        On a ``mesh`` ``env_idx`` ranges over the envs of every dp rank:
+        each rank fills the segments of its own rows and zeroes the rest,
+        and a sum over ``dp`` gives every rank the whole batch."""
         dev = self.obs.device
+        own = None
+        if mesh is not None:
+            env_idx = env_idx - mesh.index("dp") * self.n_envs
+            own = (env_idx >= 0) & (env_idx < self.n_envs)
+            env_idx = env_idx.clamp(0, self.n_envs - 1)
         start = (self.ptr - self.size) % self.capacity  # oldest logical column
         env_idx = env_idx[..., None]
 
@@ -156,7 +174,7 @@ class ReplayBuffer:
         contig = f_in_range & (f_es == es0 + offs_f)
         prev_done = torch.cumsum(f_done, dim=-1) - f_done
         valid = (contig & (prev_done == 0) & ~f_bad).float()
-        return SegmentBatch(
+        batch = SegmentBatch(
             hist_obs=hist_obs,
             hist_dobs=hist_next - hist_obs,
             hist_act=take(self.act, h_idx_c),
@@ -166,6 +184,11 @@ class ReplayBuffer:
             next_obs=take(self.next_obs, f_idx_c),
             valid=valid,
         )
+        if mesh is None:
+            return batch
+        batch = tree_map(lambda x: torch.where(
+            own.view(own.shape + (1,) * (x.ndim - own.ndim)), x, 0.0), batch)
+        return mesh.sum_tree(batch, "dp")
 
     # ------------------------------------------------------------ stats --
     def norm_inputs(self) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -180,21 +203,28 @@ class ReplayBuffer:
             mask.reshape(-1),
         )
 
-    def norm_stats(self) -> NormStats:
+    def norm_stats(self, mesh=None) -> NormStats:
         """The model's normalization statistics (mean and population std of
-        obs, act and Δobs) over the ring's filled, healthy columns."""
+        obs, act and Δobs) over the ring's filled, healthy columns; on a
+        ``mesh`` over the rings of every dp rank."""
         obs, act, dobs, mask = self.norm_inputs()
-        return NormStats(*masked_mean_std(obs, mask),
-                         *masked_mean_std(act, mask),
-                         *masked_mean_std(dobs, mask))
+        return NormStats(*masked_mean_std(obs, mask, mesh=mesh),
+                         *masked_mean_std(act, mask, mesh=mesh),
+                         *masked_mean_std(dobs, mask, mesh=mesh))
 
 
-def masked_mean_std(x: Tensor, mask: Tensor, eps: float = 1e-6
+def masked_mean_std(x: Tensor, mask: Tensor, eps: float = 1e-6, mesh=None
                     ) -> Tuple[Tensor, Tensor]:
     """Mean and population std (``sqrt(var + eps) + eps``) over the rows
-    where ``mask`` is true."""
+    where ``mask`` is true; on a ``mesh`` over the rows of every dp rank,
+    with the same two passes (the masked sums and the count, then
+    Σw·(x − mean)², each summed over ``dp``)."""
+    def total(*xs):
+        return xs if mesh is None else mesh.sum(xs, "dp")
+
     w = mask.to(x.dtype)[:, None]
-    n = torch.clamp(w.sum(), min=1.0)
-    mean = (x * w).sum(0) / n
-    var = ((x - mean) ** 2 * w).sum(0) / n
-    return mean, torch.sqrt(var + eps) + eps
+    s, cnt = total((x * w).sum(0), w.sum())
+    n = torch.clamp(cnt, min=1.0)
+    mean = s / n
+    (sq,) = total(((x - mean) ** 2 * w).sum(0))
+    return mean, torch.sqrt(sq / n + eps) + eps

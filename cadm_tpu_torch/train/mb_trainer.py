@@ -17,6 +17,15 @@ reference's.
 (``checkpoint_payload``) and resume from it at the next iteration with the
 same metrics as an uninterrupted run, and can hand each iteration's newly
 collected transitions to a ``TrajectorySink``.
+
+On a (dp, model) mesh (``parallel.mesh``) each rank steps, plans for and
+stores its block of the envs, drawing every env-sized draw for all envs and
+keeping its block; the fit gathers each minibatch over ``dp`` and trains
+the rank's members; the planner plans with every member (the heads gathered
+over ``model`` after each fit); the row is computed from gathered values.
+So the run computes what it computes without a mesh, within float32
+reduction order. Rank 0 writes the log, the checkpoints (of the gathered
+state, the same file as without a mesh) and the trajectory dump.
 """
 from __future__ import annotations
 
@@ -35,9 +44,15 @@ from cadm_tpu_torch.models.dynamics import (
     NormStats,
     SegmentBatch,
 )
+from cadm_tpu_torch.core.rng import env_rows, rand
+from cadm_tpu_torch.parallel.mesh import (
+    gather_dynamics_state,
+    gather_leading_axis,
+    shard_dynamics_state,
+)
 from cadm_tpu_torch.planners.mpc import MPCPlanner
 from cadm_tpu_torch.train.buffer import ReplayBuffer
-from cadm_tpu_torch.utils.checkpoint import from_plain, to_plain
+from cadm_tpu_torch.utils.checkpoint import restore_parts, to_plain
 
 Tensor = torch.Tensor
 Indices = Tuple[Tensor, Tensor]
@@ -121,7 +136,10 @@ def early_stop_step(best: float, since: int, val: float,
 
 class MBTrainer:
     def __init__(self, env: Env, model: Dynamics, planner: MPCPlanner,
-                 config: TrainerConfig):
+                 config: TrainerConfig, mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh`` whose dp axis splits the
+        ``n_envs`` envs and whose model axis splits the members (raises
+        ``ValueError`` where either does not divide), or None."""
         if config.fit_protocol not in ("fixed", "epochs"):
             raise ValueError(f"unknown fit_protocol {config.fit_protocol!r}")
         if config.early_stop_metric not in ("loss", "fwd_mse"):
@@ -131,6 +149,12 @@ class MBTrainer:
         self.model = model
         self.planner = planner
         self.cfg = config
+        self.mesh = mesh
+        self.n_local = config.n_envs  # this rank's envs
+        if mesh is not None:
+            self.n_local = mesh.local_count(config.n_envs, "dp", "envs")
+            mesh.local_count(model.cfg.n_members, "model",
+                             "ensemble members")
         self._fit = {"fixed": self._fit_impl,
                      "epochs": self._fit_epochs_impl}[config.fit_protocol]
         self._sym_maps = None
@@ -145,13 +169,23 @@ class MBTrainer:
 
     # ------------------------------------------------------------- init --
     def init(self, gen: torch.Generator):
-        """(env states, histories, replay ring, model state) for ``n_envs``."""
+        """(env states, histories, replay ring, model state) for ``n_envs``;
+        on a mesh this rank's envs and members."""
         env, cfg = self.env, self.cfg
-        env_states = env.reset(gen, cfg.n_envs)
-        hists = batched_history(self.model.cfg, cfg.n_envs, env.device)
-        buffer = ReplayBuffer.create(cfg.n_envs, cfg.buffer_capacity,
+        g, n = env_rows(self.mesh, gen, cfg.n_envs)
+        env_states = env.reset(g, n)
+        hists = batched_history(self.model.cfg, n, env.device)
+        buffer = ReplayBuffer.create(n, cfg.buffer_capacity,
                                      env.obs_dim, env.act_dim, env.device)
-        return env_states, hists, buffer, self.model.init_state(gen)
+        dyn_state = shard_dynamics_state(self.model.init_state(gen), self.mesh,
+                                         self.model.member_keys)
+        return env_states, hists, buffer, dyn_state
+
+    def planning_state(self, dyn_state):
+        """The model state with every member (gathered over the mesh's
+        model axis): what the planner, ``evaluate`` and a checkpoint take."""
+        return gather_dynamics_state(dyn_state, self.mesh,
+                                     self.model.member_keys)
 
     # ---------------------------------------------------------- collect --
     @torch.no_grad()
@@ -166,24 +200,26 @@ class MBTrainer:
         wiped. ``noise`` replaces the sampled randomness per step (tests
         feed both packages the same numbers): the actions (steps, E, act)
         for a random collect, the planner's ε (steps, cem_iters, E, C, H,
-        act) for a planned one.
+        act) for a planned one. ``dyn_state`` has every member
+        (``planning_state``); the envs are this rank's.
         """
-        env, model, cfg, n = self.env, self.model, self.cfg, self.cfg.n_envs
+        env, model, cfg = self.env, self.model, self.cfg
+        g, n = env_rows(self.mesh, gen, cfg.n_envs)
         plan_mu = self.planner.init_plan(n, env.device)
         ret_acc = torch.zeros(n, device=env.device)
-        ep_returns, rewards, bad_fracs = [], [], []
+        ep_returns, rewards, bads = [], [], []
         for t in range(cfg.steps_per_itr):
             if random_actions:
-                actions = noise[t] if noise is not None else 2.0 * torch.rand(
-                    n, env.act_dim, generator=gen, device=env.device) - 1.0
+                actions = noise[t] if noise is not None else \
+                    2.0 * rand(g, n, env.act_dim) - 1.0
             else:
                 z = model.context_from_history(dyn_state.params,
                                                dyn_state.norm, hists)
                 actions, plan_mu = self.planner.plan(
-                    dyn_state, env_states.obs, z, gen, plan_mu,
+                    dyn_state, env_states.obs, z, g, plan_mu,
                     noise=None if noise is None else noise[t])
             prev_obs, ep_step = env_states.obs, env_states.t
-            env_states, obs, reward, done = env.step(env_states, actions, gen)
+            env_states, obs, reward, done = env.step(env_states, actions, g)
             bad = env.bad_transition(prev_obs, obs)
             buffer.append(prev_obs, actions, obs, done, ep_step, bad)
             pushed = model.push_history(dyn_state.params, dyn_state.norm,
@@ -197,8 +233,11 @@ class MBTrainer:
             ep_returns.append(torch.where(done, ret_acc, math.nan))
             ret_acc = torch.where(done, 0.0, ret_acc)
             rewards.append(reward)
-            bad_fracs.append(bad.float().mean())
-        ep_returns = torch.stack(ep_returns)
+            bads.append(bad.float())
+        # (steps, envs) of every env, so the row is the one without a mesh
+        ep_returns, rewards, bads = gather_leading_axis(
+            [torch.stack(x) for x in (ep_returns, rewards, bads)], self.mesh,
+            dim=1)
         finished = torch.isfinite(ep_returns)
         n_done = finished.sum()
         mean_return = torch.where(
@@ -208,18 +247,18 @@ class MBTrainer:
         )
         metrics = {
             "collect/mean_episode_return": mean_return,
-            "collect/mean_step_reward": torch.stack(rewards).mean(),
+            "collect/mean_step_reward": rewards.mean(),
             "collect/episodes": n_done,
             # real-env blowup rate: transitions masked out of the norm
             # statistics, the fit and the context windows
-            "collect/bad_transition_frac": torch.stack(bad_fracs).mean(),
+            "collect/bad_transition_frac": bads.mean(1).mean(),
         }
         return env_states, hists, buffer, metrics
 
     # -------------------------------------------------------------- fit --
     def _refresh_norm(self, buffer: ReplayBuffer, dyn_state: DynamicsState
                       ) -> DynamicsState:
-        n = buffer.norm_stats()
+        n = buffer.norm_stats(self.mesh)
         if self._sym_maps is not None:
             m_o, m_a = self._sym_maps["obs"], self._sym_maps["act"]
             n = NormStats(*_symmetrize_stats(m_o, n.obs_mean, n.obs_std),
@@ -249,13 +288,20 @@ class MBTrainer:
 
     def _draw(self, buffer: ReplayBuffer, gen: torch.Generator,
               split: str) -> Indices:
-        """Segment indices of one (n_members, batch_size) minibatch."""
+        """Segment indices of one (n_members, batch_size) minibatch (over
+        every env and member on a mesh)."""
         shape = (self.model.cfg.n_members, self.cfg.batch_size)
-        return buffer.draw_indices(gen, shape, split)
+        return buffer.draw_indices(gen, shape, split, self.mesh)
+
+    def _members(self, x: Tensor) -> Tensor:
+        """This rank's members' rows of a member-leading draw."""
+        return x if self.mesh is None else self.mesh.take(x, "model")
 
     def _sample(self, buffer: ReplayBuffer, idx: Indices):
+        """The segments of ``idx`` for this rank's members."""
         mc = self.model.cfg
-        return buffer.gather(*idx, mc.history_k, mc.future_m)
+        return buffer.gather(*map(self._members, idx), mc.history_k,
+                             mc.future_m, self.mesh)
 
     def _draw_valid(self, buffer, gen) -> List[Indices]:
         return [self._draw(buffer, gen, "valid")
@@ -280,8 +326,8 @@ class MBTrainer:
         batch = self._sample(buffer, idx)
         if self._sym_maps is not None:
             g = self._sym_maps["obs"].shape[0]
-            batch = self._augment(batch, torch.randint(
-                0, g, idx[0].shape, generator=gen, device=idx[0].device))
+            batch = self._augment(batch, self._members(torch.randint(
+                0, g, idx[0].shape, generator=gen, device=idx[0].device)))
         dyn_state, m = self.model.update(dyn_state, batch)
         return dyn_state, m["model_loss"]
 
@@ -370,10 +416,14 @@ class MBTrainer:
 
         Runs ``env.horizon`` control steps; each env's return stops
         accumulating at its first done (later auto-reset episodes are not
-        counted), as in the reference.
+        counted), as in the reference. ``dyn_state`` has every member
+        (``planning_state``). On a mesh the eval envs split over dp where
+        they divide it (else every rank runs all of them) and every rank
+        gets all the returns.
         """
-        env, model, n = self.env, self.model, self.cfg.eval_envs
-        states = env.reset(gen, n, mode)
+        env, model = self.env, self.model
+        g, n = env_rows(self.mesh, gen, self.cfg.eval_envs)
+        states = env.reset(g, n, mode)
         hists = batched_history(model.cfg, n, env.device)
         ret = torch.zeros(n, device=env.device)
         alive = torch.ones(n, device=env.device)
@@ -382,15 +432,16 @@ class MBTrainer:
             z = model.context_from_history(dyn_state.params, dyn_state.norm,
                                            hists)
             actions, plan_mu = self.planner.plan(dyn_state, states.obs, z,
-                                                 gen, plan_mu)
+                                                 g, plan_mu)
             prev_obs = states.obs
-            states, obs, reward, done = env.step(states, actions, gen, mode)
+            states, obs, reward, done = env.step(states, actions, g, mode)
             hists = model.push_history(dyn_state.params, dyn_state.norm,
                                        hists, prev_obs, obs - prev_obs,
                                        actions)
             ret = ret + reward * alive
             alive = alive * (1.0 - done.float())
-        return ret
+        return ret if n == self.cfg.eval_envs else gather_leading_axis(
+            ret, self.mesh)
 
     # ------------------------------------------------------- checkpoint --
     @staticmethod
@@ -421,33 +472,40 @@ class MBTrainer:
         given, the ring is collected anew, and iteration 0 plans instead of
         acting at random. ``traj_sink`` receives ``itr{n}/obs|act|next_obs``
         of the steps just collected, each (n_envs, steps_per_itr, dim).
+
+        On a mesh every rank calls ``train`` and gets the same rows and the
+        whole final state; ``checkpointer`` and ``traj_sink`` are given on
+        every rank or on none (each rank joins the gathers of what they
+        save), and the caller makes them write on one rank only.
         """
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         env_states, hists, buffer, dyn_state = self.init(gen)
         if resume is not None:
             resume = to_plain(resume)
-            env_states, hists, buffer, dyn_state = from_plain(
-                (env_states, hists, buffer, dyn_state),
-                [resume[k] for k in ("env_states", "hists", "buffer",
-                                     "state")])
+            (env_states, hists, buffer), dyn_state = restore_parts(
+                resume, (env_states, hists, buffer), dyn_state, mesh,
+                self.model.member_keys)
             gen.set_state(resume["rng"].cpu())
             start_itr = int(resume["itr"]) + 1
         elif initial_dyn_state is not None:
-            dyn_state = initial_dyn_state
+            dyn_state = shard_dynamics_state(initial_dyn_state, mesh,
+                                             self.model.member_keys)
+        plan_state = self.planning_state(dyn_state)
         history = []
         for itr in range(start_itr, cfg.n_itr):
             use_random = (cfg.random_first_itr and itr == 0
                           and initial_dyn_state is None)
             env_states, hists, buffer, col_metrics = self._collect(
-                gen, env_states, hists, buffer, dyn_state, use_random)
+                gen, env_states, hists, buffer, plan_state, use_random)
             dyn_state, fit_metrics = self._fit(gen, buffer, dyn_state)
+            plan_state = self.planning_state(dyn_state)
             # the reference's jitted collect/fit return their dicts with
             # sorted keys, which fixes its CSV column order
             metrics = {**dict(sorted(col_metrics.items())),
                        **dict(sorted(fit_metrics.items()))}
             if (itr + 1) % cfg.eval_every == 0 or itr == cfg.n_itr - 1:
                 for mode in cfg.eval_modes:
-                    returns = self.evaluate(dyn_state, mode, gen)
+                    returns = self.evaluate(plan_state, mode, gen)
                     metrics[f"eval/return_mode{mode}"] = returns.mean()
                     metrics[f"eval/return_mode{mode}_std"] = returns.std(
                         correction=0)
@@ -458,12 +516,15 @@ class MBTrainer:
                     logger.logkv(k, v)
                 logger.dumpkvs()
             if checkpointer is not None:
+                rings = gather_leading_axis((env_states, hists, buffer), mesh)
                 checkpointer.save(itr, self.checkpoint_payload(
-                    env_states, hists, buffer, dyn_state, gen, itr))
+                    *rings, plan_state, gen, itr))
             if traj_sink is not None:
                 cols = torch.arange(buffer.ptr - cfg.steps_per_itr, buffer.ptr,
                                     device=buffer.obs.device) % buffer.capacity
-                for name in ("obs", "act", "next_obs"):
-                    traj_sink.append(f"itr{itr}/{name}",
-                                     getattr(buffer, name)[:, cols].cpu().numpy())
-        return dyn_state, history
+                names = ("obs", "act", "next_obs")
+                fields = gather_leading_axis(
+                    [getattr(buffer, name)[:, cols] for name in names], mesh)
+                for name, x in zip(names, fields):
+                    traj_sink.append(f"itr{itr}/{name}", x.cpu().numpy())
+        return plan_state, history

@@ -19,6 +19,13 @@ The reference's quirks are kept: each collect starts its return
 accumulator at 0, so an episode spanning two collects reports only its
 second part; an auto-reset at the horizon counts as terminal in GAE; with
 ``model='vanilla'`` the fit trains a model that nothing reads.
+
+On a (dp, model) mesh (``parallel.mesh``) each rank collects its block of
+the envs (env-sized draws made for all envs, the rank's block kept); the
+rollout is then gathered over ``dp`` in time-major order and the PPO update
+runs replicated on all of it; the dynamics fit is the MB trainer's (batches
+gathered over ``dp``, members split over ``model``). Rank 0 writes the log
+and the checkpoints, of the gathered state.
 """
 from __future__ import annotations
 
@@ -44,8 +51,18 @@ from cadm_tpu_torch.models.dynamics import (
     clip_adam_step,
 )
 from cadm_tpu_torch.models.nets import mlp_apply, mlp_init
+from cadm_tpu_torch.core.rng import env_rows, randn
+from cadm_tpu_torch.parallel.mesh import (
+    gather_dynamics_state,
+    gather_leading_axis,
+    shard_dynamics_state,
+)
 from cadm_tpu_torch.train.buffer import ReplayBuffer
-from cadm_tpu_torch.utils.checkpoint import from_plain, to_plain
+from cadm_tpu_torch.utils.checkpoint import (
+    from_plain,
+    restore_parts,
+    to_plain,
+)
 
 Tensor = torch.Tensor
 LOG_2PI = math.log(2.0 * math.pi)
@@ -84,10 +101,20 @@ class PPOState:
 
 
 class PPOTrainer:
-    def __init__(self, env: Env, model: Dynamics, config: PPOConfig):
+    def __init__(self, env: Env, model: Dynamics, config: PPOConfig,
+                 mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh`` whose dp axis splits the
+        ``n_envs`` envs and whose model axis splits the members (raises
+        ``ValueError`` where either does not divide), or None."""
         self.env = env
         self.model = model
         self.cfg = config
+        self.mesh = mesh
+        self.n_local = config.n_envs  # this rank's envs
+        if mesh is not None:
+            self.n_local = mesh.local_count(config.n_envs, "dp", "envs")
+            mesh.local_count(model.cfg.n_members, "model",
+                             "ensemble members")
 
     # ------------------------------------------------------------- init --
     @property
@@ -95,10 +122,12 @@ class PPOTrainer:
         return self.env.obs_dim + self.model.cfg.context_dim
 
     def init(self, gen: torch.Generator):
-        """(env states, histories, replay ring, PPO state, model state)."""
+        """(env states, histories, replay ring, PPO state, model state);
+        on a mesh this rank's envs and members."""
         env, cfg, dev = self.env, self.cfg, self.env.device
-        env_states = env.reset(gen, cfg.n_envs)
-        hists = batched_history(self.model.cfg, cfg.n_envs, dev)
+        g, n = env_rows(self.mesh, gen, cfg.n_envs)
+        env_states = env.reset(g, n)
+        hists = batched_history(self.model.cfg, n, dev)
         params = {
             "policy": mlp_init(gen, [self._pol_in, *cfg.policy_hidden,
                                      env.act_dim]),
@@ -106,8 +135,9 @@ class PPOTrainer:
             "value": mlp_init(gen, [self._pol_in, *cfg.policy_hidden, 1]),
         }
         ppo_state = PPOState(params, AdamState.zeros_like(params))
-        dyn_state = self.model.init_state(gen)
-        buffer = ReplayBuffer.create(cfg.n_envs, cfg.buffer_capacity,
+        dyn_state = shard_dynamics_state(self.model.init_state(gen), self.mesh,
+                                         self.model.member_keys)
+        buffer = ReplayBuffer.create(n, cfg.buffer_capacity,
                                      env.obs_dim, env.act_dim, dev)
         return env_states, hists, buffer, ppo_state, dyn_state
 
@@ -144,20 +174,21 @@ class PPOTrainer:
         clipped action), ``value`` (before the step), ``reward``, ``done``
         and ``ep_return`` (the episode's return where it ended, NaN
         elsewhere). ``noise`` (T, E, act) replaces the policy's standard
-        normal draws (tests feed both packages the same numbers).
+        normal draws (tests feed both packages the same numbers). The envs are
+        this rank's.
         """
         env, model, p = self.env, self.model, ppo_state.params
-        ret_acc = torch.zeros(self.cfg.n_envs, device=env.device)
+        g, n = env_rows(self.mesh, gen, self.cfg.n_envs)
+        ret_acc = torch.zeros(n, device=env.device)
         traj = {k: [] for k in ("obs_z", "act", "logp", "value", "reward",
                                 "done", "ep_return")}
         for t in range(self.cfg.rollout_len):
             obs_z = self._obs_z(dyn_state, env_states.obs, hists)
             mean, log_std = self._dist(p, obs_z)
-            eps = noise[t] if noise is not None else torch.randn(
-                mean.shape, generator=gen, device=env.device)
+            eps = noise[t] if noise is not None else randn(g, *mean.shape)
             act = torch.clamp(mean + torch.exp(log_std) * eps, -1.0, 1.0)
             prev_obs, ep_step = env_states.obs, env_states.t
-            env_states, obs, reward, done = env.step(env_states, act, gen)
+            env_states, obs, reward, done = env.step(env_states, act, g)
             buffer.append(prev_obs, act, obs, done, ep_step,
                           env.bad_transition(prev_obs, obs))
             pushed = model.push_history(dyn_state.params, dyn_state.norm,
@@ -250,20 +281,26 @@ class PPOTrainer:
 
     # --------------------------------------------------------- fit model --
     def _draw(self, buffer: ReplayBuffer, gen: torch.Generator, split: str):
-        """Segment indices of one (n_members, model_batch) minibatch."""
+        """Segment indices of one (n_members, model_batch) minibatch (over
+        every env and member on a mesh)."""
         return buffer.draw_indices(
-            gen, (self.model.cfg.n_members, self.cfg.model_batch), split)
+            gen, (self.model.cfg.n_members, self.cfg.model_batch), split,
+            self.mesh)
 
     def _sample(self, buffer: ReplayBuffer, idx):
+        """The segments of ``idx`` for this rank's members."""
         mc = self.model.cfg
-        return buffer.gather(*idx, mc.history_k, mc.future_m)
+        if self.mesh is not None:
+            idx = [self.mesh.take(x, "model") for x in idx]
+        return buffer.gather(*idx, mc.history_k, mc.future_m, self.mesh)
 
     @torch.no_grad()
     def _fit_model(self, gen: torch.Generator, buffer: ReplayBuffer,
                    dyn_state: DynamicsState):
         """The norm refreshed from the whole ring, ``model_updates_per_itr``
         updates on train segments, then the loss of one valid batch."""
-        dyn_state = dataclasses.replace(dyn_state, norm=buffer.norm_stats())
+        dyn_state = dataclasses.replace(dyn_state,
+                                        norm=buffer.norm_stats(self.mesh))
         loss = None
         for _ in range(self.cfg.model_updates_per_itr):
             dyn_state, m = self.model.update(
@@ -297,18 +334,22 @@ class PPOTrainer:
                  mode: int, gen: torch.Generator) -> Tensor:
         """Fresh episodes of ``eval_envs`` envs on dynamics range ``mode``
         for exactly ``env.horizon`` steps → returns (eval_envs,); each stops
-        accumulating at its env's first done."""
-        env, n = self.env, self.cfg.eval_envs
-        states = env.reset(gen, n, mode)
+        accumulating at its env's first done. On a mesh the eval envs split
+        over dp where they divide it (else every rank runs all of them) and
+        every rank gets all the returns."""
+        env = self.env
+        g, n = env_rows(self.mesh, gen, self.cfg.eval_envs)
+        states = env.reset(g, n, mode)
         hists = batched_history(self.model.cfg, n, env.device)
         ret = torch.zeros(n, device=env.device)
         alive = torch.ones(n, device=env.device)
         for _ in range(env.horizon):
             states, hists, _, _, reward, done = self._eval_step(
-                ppo_state, dyn_state, states, hists, gen, mode)
+                ppo_state, dyn_state, states, hists, g, mode)
             ret = ret + reward * alive
             alive = alive * (1.0 - done.float())
-        return ret
+        return ret if n == self.cfg.eval_envs else gather_leading_axis(
+            ret, self.mesh)
 
     # ------------------------------------------------------- checkpoint --
     @staticmethod
@@ -332,21 +373,30 @@ class PPOTrainer:
         iteration evaluates. ``checkpointer`` saves ``checkpoint_payload``
         after every iteration; ``resume`` (such a payload, as saved or
         plain) goes on at its ``itr`` + 1.
+
+        On a mesh every rank calls ``train`` and gets the same rows and the
+        whole final state; ``checkpointer`` is given on every rank or on
+        none (each rank joins the gathers of what it saves), and the caller
+        makes it write on one rank only.
         """
-        cfg = self.cfg
-        state = self.init(gen)
+        cfg, mesh = self.cfg, self.mesh
+        keys = self.model.member_keys
+        env_states, hists, buffer, ppo_state, dyn_state = self.init(gen)
         start_itr = 0
         if resume is not None:
             resume = to_plain(resume)
-            state = from_plain(state, [resume[k] for k in (
-                "env_states", "hists", "buffer", "ppo_state", "state")])
+            (env_states, hists, buffer), dyn_state = restore_parts(
+                resume, (env_states, hists, buffer), dyn_state, mesh, keys)
+            ppo_state = from_plain(ppo_state, resume["ppo_state"])
             gen.set_state(resume["rng"].cpu())
             start_itr = int(resume["itr"]) + 1
-        env_states, hists, buffer, ppo_state, dyn_state = state
         history = []
         for itr in range(start_itr, cfg.n_itr):
             env_states, hists, buffer, traj, last_value = self._collect(
                 gen, env_states, hists, buffer, ppo_state, dyn_state)
+            # every env's rollout, time-major: the update is replicated
+            traj = gather_leading_axis(traj, mesh, dim=1)
+            last_value = gather_leading_axis(last_value, mesh)
             ep_returns = traj.pop("ep_return").cpu().numpy()
             ppo_state, ppo_metrics = self._ppo_update(gen, ppo_state, traj,
                                                       last_value)
@@ -374,6 +424,8 @@ class PPOTrainer:
                     logger.logkv(k, v)
                 logger.dumpkvs()
             if checkpointer is not None:
+                rings = gather_leading_axis((env_states, hists, buffer), mesh)
                 checkpointer.save(itr, self.checkpoint_payload(
-                    env_states, hists, buffer, ppo_state, dyn_state, gen, itr))
-        return ppo_state, dyn_state, history
+                    *rings, ppo_state,
+                    gather_dynamics_state(dyn_state, mesh, keys), gen, itr))
+        return ppo_state, gather_dynamics_state(dyn_state, mesh, keys), history

@@ -15,6 +15,7 @@ import torch
 
 from cadm_tpu_torch.core.types import History, tree_map, tree_where
 from cadm_tpu_torch.envs.base import Env
+from cadm_tpu_torch.core.rng import rand
 
 Tensor = torch.Tensor
 # policy: (obs (E, obs), histories, generator) -> actions (E, act)
@@ -53,8 +54,7 @@ class Sampler:
             if actions is not None:
                 act = actions[t]
             elif random or policy is None:
-                act = 2.0 * torch.rand(n, env.act_dim, generator=gen,
-                                       device=env.device) - 1.0
+                act = 2.0 * rand(gen, n, env.act_dim) - 1.0
             else:
                 act = policy(states.obs, hists, gen)
             prev_obs = states.obs

@@ -9,6 +9,10 @@ refuses arbitrary classes, so a payload is stored as plain dicts, lists,
 tensors and numbers (``to_plain``) and the trainer rebuilds its dataclasses
 on restore (``from_plain``). Zero-width tensors (``History.rnn_h`` of a
 non-recurrent model) need no placeholder.
+
+A run on a mesh (``parallel.mesh``) saves the gathered state from rank 0,
+the same file as without a mesh; ``restore_parts`` places a payload on any
+layout.
 """
 from __future__ import annotations
 
@@ -18,6 +22,12 @@ import re
 from typing import Any, List, Optional
 
 import torch
+
+from cadm_tpu_torch.parallel.mesh import (
+    gather_dynamics_state,
+    shard_dynamics_state,
+    shard_leading_axis,
+)
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -65,15 +75,31 @@ def from_plain(template: Any, plain: Any) -> Any:
     return plain
 
 
+def restore_parts(plain: dict, env_template: tuple, dyn_template, mesh=None,
+                  member_keys=()):
+    """(the env states, histories and ring, the model state) of a plain
+    payload, rebuilt as the templates (a trainer's ``init``); on a mesh
+    this rank's block of the envs and its members (the model's
+    ``member_keys``), whatever layout saved the payload."""
+    env_part = [plain[k] for k in ("env_states", "hists", "buffer")]
+    dyn = from_plain(gather_dynamics_state(dyn_template, mesh, member_keys),
+                     plain["state"])
+    env_part = shard_leading_axis(env_part, mesh)
+    return (from_plain(tuple(env_template), env_part),
+            shard_dynamics_state(dyn, mesh, member_keys))
+
+
 class Checkpointer:
     """Saves payloads as ``<directory>/step_<n>.pt`` and keeps the newest
     ``keep``. A save writes a temporary file and renames it, so a step file
-    is either whole or absent."""
+    is either whole or absent. With ``writes=False`` (every rank of a mesh
+    but one) ``save`` writes nothing and ``restore`` still reads."""
 
     def __init__(self, directory: str, keep: int = 3, save_buffer: bool = True,
-                 map_location=None):
+                 map_location=None, writes: bool = True):
         self.dir = os.path.abspath(directory)
         os.makedirs(self.dir, exist_ok=True)
+        self.writes = writes
         self.keep = keep
         self.save_buffer = save_buffer
         self.map_location = map_location
@@ -89,6 +115,8 @@ class Checkpointer:
         """Save a payload. ``state`` is a full training payload dict
         (``MBTrainer.checkpoint_payload``) or a bare model state;
         ``buffer`` is stored beside a bare state when ``save_buffer``."""
+        if not self.writes:
+            return
         payload = dict(state) if isinstance(state, dict) else {"state": state}
         if buffer is not None and self.save_buffer:
             payload["buffer"] = buffer

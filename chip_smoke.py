@@ -70,10 +70,32 @@ Phases, one or more lines each, any failure raising (exit code != 0):
 10. the acting path at full width (``trainer.evaluate``) for
    ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2: cheetah at
    2048 envs, slim_humanoid and hopper at 512, with both kernels' launch
-   counts checked against steps × frame_skip.
+   counts checked against steps × frame_skip;
+11. the mesh (``cadm_tpu_torch/parallel``), ranks under
+   ``torch.multiprocessing`` (spawn) through ``cli.run.main(argv, mesh)``:
+   (a) the toy cheetah of phases 5/6 with 2 members, 3 iterations, on a
+   dp=2 × model=2 mesh (4 ranks sharing the card, gloo) and on dp=2, and the
+   toy hopper PPO at dp=2, against the same runs without a mesh: rows
+   within SLICE_ATOL (collect/eval) and FIT_LOSS_RTOL (losses), final
+   weights within FIT_ATOL; (b) the toy cheetah on an nccl group of world
+   size 1, bit for bit; (c) phase 7's 2048-env cheetah at dp=2 (1024 envs a
+   rank, both on the card): per rank the random-collect env steps/s, ms per
+   planned step, fit updates/s and peak memory (the ranks share one card:
+   not scaling numbers), the phase-7 columns finite, and the gather a
+   checkpoint of that run makes (each rank's 20000-column ring gathered
+   over dp): its seconds, the device memory it adds and the host copy's
+   seconds; (d) the dp=2 × model=2 checkpoint of iteration 1 resumed
+   without a mesh, its iteration 2 against the uninterrupted sharded run's;
+   (e) nccl with a card per rank where there are two cards (else a line
+   says it did not run); (f) ``dryrun_multichip(4)`` on the card (4 ranks
+   sharing it), a finite loss alike on every rank. Every rank's K1/K2
+   launches = frame_skip × its control steps.
 
-Each path of phases 7–10 sets the launch counts to 0 before it runs and
-reads them after.
+Each path of phases 7–11 sets the launch counts to 0 before it runs and
+reads them after (in its rank's process on a mesh).
+
+``python3 chip_smoke.py --only mesh`` runs phase 1 and phase 11 alone and
+prints each path's launches (no JSON lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -83,6 +105,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import csv
 import dataclasses
@@ -1271,6 +1294,286 @@ def run_full_slice(PRESETS, pgs, fk_kernel, preset="halfcheetah_cadm_cem",
                      fk_kernel.fk_vel_launches)
 
 
+# ---------------------------------------------------- phase 11: the mesh --
+# the toy cheetah of phases 5/6 with 2 members, 3 iterations (checkpointed on
+# the dp=2, model=2 mesh; (d) resumes its iteration 2 without a mesh), the
+# toy PPO of phase 6 for 2 iterations, and phase 7's cheetah
+MESH_TOY = dict(TOY, ensemble=2, n_itr=3, steps_per_itr=10, env_horizon=5,
+                buffer_capacity=40, batch_size=16, max_epochs=3)
+MESH_ARGV = {
+    "toy cheetah": ["--preset", "halfcheetah_cadm_cem", *cli_flags(MESH_TOY)],
+    "toy ppo": ["--preset", "hopper_ppo_cadm", *cli_flags(TOY_PPO),
+                "--n-itr", "2"],
+    "full cheetah": ["--preset", "halfcheetah_cadm_cem", *TRAIN_DEPTH],
+}
+
+
+def mesh_job(mesh, tag, log_dir, extra=()):
+    """MESH_ARGV[tag] through ``cli.run.main`` on ``mesh`` (None: no mesh)
+    in this process → its rows, final weights, kernel launches, its env's
+    frame_skip and its control steps, the seconds
+    of each collect and fit call (and the fit's updates), this rank's env
+    count and its peak device memory."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.core.types import tree_leaves
+    from cadm_tpu_torch.ops import fk_kernel, pgs
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+    from cadm_tpu_torch.train.ppo import PPOTrainer
+
+    argv = [*MESH_ARGV[tag], *extra]
+    cfg = run.config_from_args(run.build_parser().parse_args(argv))
+    ppo = cfg.trainer == "ppo"
+    cls = PPOTrainer if ppo else MBTrainer
+    fit = ("_fit_model",) if ppo else ("_fit_epochs_impl", "_fit_impl")
+    log, result, launched = [], [], []
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with timed(cls, ("_collect", "evaluate", *fit), log), \
+            last_output(cls, "train", result), \
+            counted(pgs, fk_kernel, launched):
+        t0 = time.perf_counter()
+        rows = run.main([*argv, "--log-dir", log_dir, "--exp-name",
+                         tag.replace(" ", "_")], mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trainer = log[0][2][0]
+    *states, _ = result[0]
+    steps = (ppo_control_steps if ppo else control_steps)(log)
+    out = dict(
+        rows=rows, launches=list(launched),
+        params=[x.detach().cpu() for s in states
+                for x in tree_leaves(s.params)],
+        frame_skip=getattr(trainer.env, "frame_skip", 0), control_steps=steps,
+        collect_s=[s for n, s, _, _ in log if n == "_collect"],
+        fits=[(s, int(o[0].updates - a[3].updates))
+              for n, s, a, o in log if n in fit],
+        steps=cfg.rollout_len if ppo else cfg.steps_per_itr,
+        n_local=trainer.n_local, peak=torch.cuda.max_memory_allocated(),
+        wall=wall)
+    if tag == "full cheetah" and mesh is not None:
+        del log, result, states  # the run's ring and model
+        out["gather"] = checkpoint_gather(trainer, mesh)
+    return out
+
+
+def checkpoint_gather(trainer, mesh):
+    """The gather a checkpoint makes on ``mesh`` (``MBTrainer.train``):
+    this rank's env states, histories and ring, fresh from ``init`` at the
+    run's shapes, gathered over dp → (their bytes, seconds of the gather,
+    the device memory it adds at its peak, seconds of the copy to the host
+    that ``torch.save`` makes)."""
+    from cadm_tpu_torch.core.types import tree_map
+    from cadm_tpu_torch.parallel.mesh import gather_leading_axis
+
+    rings = trainer.init(torch.Generator(device=mesh.device).manual_seed(0))
+    rings = rings[:3]
+    leaves = []
+    tree_map(leaves.append, rings)
+    held = sum(x.numel() * x.element_size() for x in leaves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    full = gather_leading_axis(rings, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    added = torch.cuda.max_memory_allocated() - base
+    host = []
+    tree_map(lambda x: host.append(x.cpu()), full)
+    t2 = time.perf_counter()
+    return dict(bytes=held, s=t1 - t0, added=added, host_s=t2 - t1)
+
+
+def mesh_rank(mesh, jobs, log_dir):
+    """One rank of a phase-11 mesh: ``mesh_job`` of each (tag, extra flags)
+    in ``jobs``, in order."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {tag: mesh_job(mesh, tag, log_dir, extra) for tag, extra in jobs}
+
+
+def rows_err(rows, ref):
+    """(largest |Δ| of the collect/eval columns, largest relative |Δ| of the
+    fit/ and ppo/ columns) between two runs' rows; NaN matches NaN only."""
+    if [list(r) for r in rows] != [list(r) for r in ref]:
+        raise AssertionError(f"rows differ in shape: {len(rows)} vs "
+                             f"{len(ref)} rows, keys {list(rows[0])}")
+    err_abs = err_rel = 0.0
+    for a, b in zip(rows, ref):
+        for k in b:
+            x, y = float(a[k]), float(b[k])
+            if math.isnan(x) or math.isnan(y):
+                d = 0.0 if math.isnan(x) and math.isnan(y) else math.inf
+            else:
+                d = abs(x - y)
+            if k.startswith(("fit/", "ppo/")):
+                err_rel = max(err_rel, d / max(abs(y), 1e-30))
+            else:
+                err_abs = max(err_abs, d)
+    return err_abs, err_rel
+
+
+def check_mesh_agrees(what, out, ref, against="no mesh"):
+    """A mesh run's rows and weights against the run without a mesh (or
+    ``against``), within phase 5/6's tolerances (SLICE_ATOL on returns and
+    rewards, FIT_LOSS_RTOL on losses, FIT_ATOL on weights)."""
+    err_abs, err_rel = rows_err(out["rows"], ref["rows"])
+    err_p = max((a - b).abs().max().item()
+                for a, b in zip(out["params"], ref["params"]))
+    print(f"mesh {what} vs {against}, {len(ref['rows'])} rows: max |Δ| "
+          f"collect/eval {err_abs:.3e} (atol {SLICE_ATOL}), fit/ppo rel "
+          f"{err_rel:.3e} (rtol {FIT_LOSS_RTOL}); final weights {err_p:.3e} "
+          f"(atol {FIT_ATOL})")
+    if not (err_abs <= SLICE_ATOL and err_rel <= FIT_LOSS_RTOL
+            and err_p <= FIT_ATOL and len(out["params"]) ==
+            len(ref["params"])):
+        raise AssertionError(f"mesh {what} disagrees with {against}")
+
+
+def mesh_launches(paths, what, outs, tag):
+    """Check each rank's K1/K2 launches of ``tag`` against frame_skip × its
+    control steps; add the path (launches summed over its ranks)."""
+    for r, out in enumerate(outs):
+        o = out[tag]
+        check_launches(f"mesh {what} rank {r}", o["launches"],
+                       o["frame_skip"], o["control_steps"])
+    paths[f"mesh {what}"] = [sum(o[tag]["launches"][i] for o in outs)
+                             for i in range(3)]
+
+
+def run_mesh():
+    """Phase 11: the mesh (``cadm_tpu_torch/parallel``) on the card, ranks
+    under ``torch.multiprocessing`` (spawn); returns each path's launches."""
+    from cadm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cadm_tpu_torch.parallel.mesh import make_mesh, spawn
+
+    t_phase = time.perf_counter()
+    paths = {}
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' processes share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = {tag: mesh_job(None, tag, f"{tmp}/plain")
+               for tag in ("toy cheetah", "toy ppo")}
+        for tag, out in ref.items():
+            mesh_launches(paths, f"{tag} (no mesh)", [{tag: out}], tag)
+
+        # (b) nccl at world size 1: bit for bit
+        mesh = make_mesh(1, 1, ["cuda:0"], rank=0,
+                         init_method=f"file://{tmp}/nccl_store")
+        try:
+            backend = mesh.backend
+            nccl = mesh_job(mesh, "toy cheetah", f"{tmp}/nccl")
+        finally:
+            mesh.close()
+        same = [a == b or (isinstance(a, float) and math.isnan(a)
+                           and math.isnan(b))
+                for ra, rb in zip(nccl["rows"], ref["toy cheetah"]["rows"])
+                for a, b in zip(ra.values(), rb.values())]
+        same_w = all(torch.equal(a, b) for a, b in zip(
+            nccl["params"], ref["toy cheetah"]["params"]))
+        print(f"mesh (b) toy cheetah on a world-1 {backend} group vs no "
+              f"mesh: {sum(same)}/{len(same)} row values equal, final "
+              f"weights bit for bit {same_w}")
+        if backend != "nccl" or not all(same) or not same_w:
+            raise AssertionError("mesh (b): the nccl run differs")
+        mesh_launches(paths, "toy cheetah (nccl, world 1)",
+                      [{"t": nccl}], "t")
+
+        # (a) 4 ranks on the card (gloo), checkpointed for (d)
+        t0 = time.perf_counter()
+        r22 = spawn(mesh_rank, 2, 2, ["cuda:0"] * 4,
+                    args=([("toy cheetah", ("--checkpoint",))],
+                          f"{tmp}/m22"))
+        t22 = time.perf_counter() - t0
+        for r, out in enumerate(r22):
+            check_mesh_agrees(f"(a) toy cheetah dp=2 model=2 rank {r}",
+                              out["toy cheetah"], ref["toy cheetah"])
+        mesh_launches(paths, "toy cheetah dp=2 model=2", r22, "toy cheetah")
+
+        # (a) and (c): 2 ranks on the card (gloo)
+        t0 = time.perf_counter()
+        r21 = spawn(mesh_rank, 2, 1, ["cuda:0"] * 2,
+                    args=([("toy cheetah", ()), ("toy ppo", ()),
+                           ("full cheetah", ())], f"{tmp}/m21"))
+        t21 = time.perf_counter() - t0
+        for r, out in enumerate(r21):
+            for tag in ("toy cheetah", "toy ppo"):
+                check_mesh_agrees(f"(a) {tag} dp=2 rank {r}", out[tag],
+                                  ref[tag])
+        for tag in ("toy cheetah", "toy ppo", "full cheetah"):
+            mesh_launches(paths, f"{tag} dp=2", r21, tag)
+        for r, out in enumerate(r21):
+            c = out["full cheetah"]
+            (s0, s1), fits = c["collect_s"], c["fits"]
+            print(f"mesh (c) full cheetah dp=2 rank {r} ({c['n_local']} of "
+                  f"2048 envs; 2 ranks share one card, so not a scaling "
+                  f"number): random collect "
+                  f"{c['n_local'] * c['steps'] / s0:.1f} env steps/s, "
+                  f"planned collect {1e3 * s1 / c['steps']:.1f} ms per "
+                  f"control step, fit " + " / ".join(
+                      f"{u / s:.1f}" for s, u in fits) + " updates/s ("
+                  + " / ".join(str(u) for _, u in fits) + " updates), "
+                  f"peak device memory {c['peak'] / 2**30:.2f} GiB, wall "
+                  f"{c['wall']:.1f} s; launches pgs={c['launches'][0]} "
+                  f"full_dyn={c['launches'][1]} (frame_skip × control steps "
+                  f"= {c['frame_skip'] * c['control_steps']})")
+            g = c["gather"]
+            print(f"mesh (c) checkpoint gather dp=2 rank {r}: this rank's "
+                  f"env states, histories and ring {g['bytes'] / 2**30:.2f} "
+                  f"GiB gathered over dp in {g['s']:.2f} s, adding "
+                  f"{g['added'] / 2**30:.2f} GiB of device memory at its "
+                  f"peak; the copy to the host {g['host_s']:.2f} s")
+        with open(f"{tmp}/m21/full_cheetah/progress.csv") as f:
+            rows = list(csv.DictReader(f))
+        bad = [(r["itr"], k) for r in rows for k in TRAIN_KEYS
+               if not math.isfinite(float(r[k]))]
+        if len(rows) != 2 or list(rows[0]) != TRAIN_KEYS or bad:
+            raise AssertionError(f"mesh (c) progress.csv: {len(rows)} rows, "
+                                 f"keys {list(rows[0])}, not finite {bad}")
+        print(f"mesh (c) progress.csv (rank 0): {len(rows)} rows, the "
+              f"phase-7 columns, all finite; eval returns " + " / ".join(
+                  f"{float(rows[-1][f'eval/return_mode{m}']):.3f}"
+                  for m in (0, 1, 2)))
+
+        # (d) the dp=2, model=2 checkpoint of iteration 1 resumes without
+        # a mesh
+        ck = f"{tmp}/m22/toy_cheetah/checkpoints"
+        os.remove(f"{ck}/step_2.pt")
+        resumed = mesh_job(None, "toy cheetah", f"{tmp}/m22", ("--resume",))
+        sharded = r22[0]["toy cheetah"]
+        check_mesh_agrees("(d) itr 2 resumed without a mesh from the dp=2 "
+                          "model=2 checkpoint of itr 1", resumed,
+                          dict(sharded, rows=sharded["rows"][2:]),
+                          "the uninterrupted dp=2 model=2 run")
+        mesh_launches(paths, "toy cheetah resume (no mesh)",
+                      [{"t": resumed}], "t")
+
+        # (e) nccl with one rank per card
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            r_e = spawn(mesh_rank, 2, 1, ["cuda:0", "cuda:1"],
+                        args=([("toy cheetah", ())], f"{tmp}/m_e"))
+            for r, out in enumerate(r_e):
+                check_mesh_agrees(f"(e) toy cheetah dp=2 nccl rank {r}",
+                                  out["toy cheetah"], ref["toy cheetah"])
+            mesh_launches(paths, "toy cheetah dp=2 (nccl, a card each)", r_e,
+                          "toy cheetah")
+        else:
+            print(f"mesh (e) nccl with one rank per card: not run "
+                  f"({n_cards} card)")
+
+    # (f) the dry run on the card, 4 ranks sharing it
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(4)
+    if not math.isfinite(loss):
+        raise AssertionError(f"mesh (f) dryrun_multichip(4): loss {loss}")
+    print(f"mesh (f) dryrun_multichip(4) on the card: loss {loss:.6f} on "
+          f"every rank, {time.perf_counter() - t0:.1f} s")
+    print(f"mesh: 4-rank spawn {t22:.1f} s, 2-rank spawn {t21:.1f} s, phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
                  **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -1282,7 +1585,11 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
             "library_ms": None, **extra}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Drive the port on the card.")
+    parser.add_argument("--only", choices=["mesh"],
+                        help="run phase 1 and this phase alone")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
               "False", file=sys.stderr)
@@ -1304,6 +1611,11 @@ def main() -> int:
     path = _build.build()
     _build.lib()
     print(f"build: nvcc sm_90a -> {path} in {time.perf_counter() - t0:.1f} s")
+    if only == "mesh":
+        for name, counts in run_mesh().items():
+            print(f"{name}: launches pgs/full_dyn/fk_vel {counts}")
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1340,6 +1652,7 @@ def main() -> int:
     for preset, n in ACT_PRESETS:
         step_ms[preset], paths[f"act {preset}"] = run_full_slice(
             PRESETS, pgs, fk_kernel, preset, n)
+    paths.update(run_mesh())
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),

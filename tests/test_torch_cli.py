@@ -63,14 +63,22 @@ def test_cli_trains_on_the_cpu_and_writes_the_reference_logs(tmp_path):
 @pytest.mark.parametrize("flag", [["--checkpoint"], ["--resume"],
                                   ["--dump-trajs"], ["--dp", "2"],
                                   ["--model-par", "2"]])
-def test_flags_the_port_cannot_honour_are_rejected(flag):
-    """The mesh flags are rejected; the checkpoint, resume and trajectory
-    flags are ported and accepted (tests/test_torch_resume.py and
+def test_flags_the_port_cannot_honour_are_rejected(flag, monkeypatch):
+    """The mesh flags are parsed, and rejected where they cannot be
+    honoured: ``--dp`` without a launcher (no silent unsharded run) and
+    ``--model-par`` without ``--dp`` (tests/test_torch_mesh*.py run them
+    under a launcher); the checkpoint, resume and trajectory flags are
+    ported and accepted (tests/test_torch_resume.py and
     test_torch_trajsink.py run them)."""
     argv = ["--preset", "halfcheetah_cadm_cem", *flag]
     if flag[0] in ("--dp", "--model-par"):
-        with pytest.raises(SystemExit):
-            run.build_parser().parse_args(argv)
+        args = run.build_parser().parse_args(argv)
+        assert getattr(args, flag[0][2:].replace("-", "_")) == 2
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+        err = RuntimeError if flag[0] == "--dp" else ValueError
+        with pytest.raises(err, match="torchrun" if flag[0] == "--dp"
+                           else "--dp"):
+            run.main([*argv, "--device", "cpu"])
         return
     args = run.build_parser().parse_args(argv)
     assert getattr(args, flag[0][2:].replace("-", "_")) is True

@@ -5,8 +5,9 @@ Runs in a subprocess because this suite's conftest imports jax: there those
 modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
 ``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
 baselines, the checkpointer, the trajectory sink, the analytic envs, the
-wrapper, the Sampler and the PPO trainer among them), the four Systems are
-loaded from their npz files, the acting slice runs at toy width on the CPU,
+wrapper, the Sampler, the PPO trainer and the mesh among them), the four
+Systems are loaded from their npz files, the acting slice runs at toy
+width on the CPU,
 toy ReBAL and GrBAL runs train, checkpoint and resume, a bare config builds
 the reference's default cartpole, and a toy PPO + CaDM run and a Sampler
 run on the CPU.
@@ -38,7 +39,8 @@ SCRIPT = textwrap.dedent("""
             "cadm_tpu_torch.utils.debug", "cadm_tpu_torch.utils.profiling",
             "cadm_tpu_torch.envs.cartpole", "cadm_tpu_torch.envs.pendulum",
             "cadm_tpu_torch.envs.wrappers", "cadm_tpu_torch.train.sampler",
-            "cadm_tpu_torch.train.ppo",
+            "cadm_tpu_torch.train.ppo", "cadm_tpu_torch.parallel.mesh",
+            "cadm_tpu_torch.parallel.dryrun", "cadm_tpu_torch.core.rng",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
