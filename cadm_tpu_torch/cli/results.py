@@ -1,0 +1,245 @@
+"""Render RESULTS_TORCH.md from results/torch/raw/*.json (counterpart of
+scripts/make_results.py).
+
+Every planned cell of the family × model variant × {train, moderate,
+extreme} matrix is either a number (the mean ± half-range over seeds of each
+run's mean of its last two evals) or an explicit skip reason. The table's
+columns and row rules are the reference's, so the same raw directory gives
+the same rows under either renderer.
+
+Usage:
+  python -m cadm_tpu_torch.cli.results            # writes RESULTS_TORCH.md
+  python -m cadm_tpu_torch.cli.results --raw results/raw --out /tmp/r.md \\
+      --print
+  python -m cadm_tpu_torch.cli.results --against results/raw   # vs the JAX
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+RAW = os.path.join(ROOT, "results", "torch", "raw")
+OUT = os.path.join(ROOT, "RESULTS_TORCH.md")
+
+FAMILIES = [
+    "cartpole", "pendulum", "half_cheetah", "cripple_ant",
+    "slim_humanoid", "hopper", "ant",
+]
+MODELS = ["vanilla", "stacked", "rebal", "grbal", "pets", "pets_mse",
+          "pets_dv", "cadm", "cadm_aug",
+          "pets_cadm", "pets_cadm_mse", "pets_cadm_mse16", "pets_cadm_dv",
+          "pets_cadm_aug", "ppo", "ppo_cadm"]
+MODEL_LABEL = {
+    "vanilla": "Vanilla",
+    "stacked": "Stacked",
+    "rebal": "ReBAL (RNN)",
+    "grbal": "GrBAL",
+    "cadm": "Vanilla + CaDM",
+    "pets": "PE-TS",
+    "pets_cadm": "PE-TS + CaDM",
+    "pets_cadm_mse": "PE-TS + CaDM (MSE-gated fit)",
+    "pets_cadm_mse16": "PE-TS + CaDM (MSE-gated, 16-epoch cap)",
+    "cadm_aug": "Vanilla + CaDM (leg-sym aug)",
+    "pets_cadm_dv": "PE-TS + CaDM (detached var head)",
+    "pets_mse": "PE-TS (MSE-gated fit)",
+    "pets_dv": "PE-TS (detached var head)",
+    "pets_cadm_aug": "PE-TS + CaDM (leg-sym aug)",
+    "ppo": "PPO",
+    "ppo_cadm": "PPO + CaDM",
+}
+# opt-in rows (run on selected families only): a (family, model) with no
+# cell and no failure is left out instead of printed as a skip
+OPTIONAL_MODELS = {"stacked", "rebal", "grbal", "pets", "ppo", "ppo_cadm",
+                   "pets_cadm_mse", "pets_cadm_mse16", "pets_cadm_dv",
+                   "pets_mse", "pets_dv", "cadm_aug", "pets_cadm_aug"}
+# 'ant' (mass/damping) is beyond the paper's six families
+OPTIONAL_FAMILIES = {"ant"}
+
+
+def load_cells(raw_dir: str = RAW):
+    """({(family, model): [cell records]}, {(family, model): [failure
+    reasons]}) of ``raw_dir``."""
+    cells = {}
+    for path in glob.glob(os.path.join(raw_dir, "*.json")):
+        with open(path) as f:
+            r = json.load(f)
+        cells.setdefault((r["family"], r["model"]), []).append(r)
+    fails = {}
+    for path in glob.glob(os.path.join(raw_dir, "*.failed")):
+        fam, model, _ = os.path.basename(path)[:-len(".failed")].split("__")
+        with open(path) as f:
+            txt = f.read()
+        # a CUDA error first: "an illegal memory access" is not an OOM
+        reason = "CUDA error" if "CUDA error" in txt else (
+            "OOM" if "memory" in txt.lower() else "error")
+        fails.setdefault((fam, model), []).append(reason)
+    return cells, fails
+
+
+def _run_value(run, key, tail=2):
+    """Mean of the last ``tail`` recorded (non-NaN) values of ``key`` in one
+    run: eval returns at the matrix's scale swing between iterations, so
+    one final point is a poor estimate."""
+    vals = [h[key] for h in run["history"]
+            if key in h and h[key] == h[key]]
+    if not vals:
+        return None
+    return sum(vals[-tail:]) / len(vals[-tail:])
+
+
+def final_metric(runs, key):
+    """``mean`` over the runs (one run) or ``mean ± half-range``; None
+    where no run recorded ``key``."""
+    vals = [v for v in (_run_value(r, key) for r in runs) if v is not None]
+    if not vals:
+        return None
+    mean = sum(vals) / len(vals)
+    if len(vals) == 1:
+        return f"{mean:.0f}"
+    return f"{mean:.0f} ± {(max(vals) - min(vals)) / 2:.0f}"
+
+
+def table(cells, fails) -> list:
+    """The header and one row per planned (family, model), in the
+    reference's format."""
+    lines = [
+        "| family | model | train | moderate | extreme | collect | seeds | "
+        "wall/run |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for fam in FAMILIES:
+        for model in MODELS:
+            runs = cells.get((fam, model))
+            if not runs:
+                opt = model in OPTIONAL_MODELS or fam in OPTIONAL_FAMILIES
+                if opt and not fails.get((fam, model)):
+                    continue
+                reason = ("; ".join(set(fails.get((fam, model), [])))
+                          or "not yet run")
+                lines.append(f"| {fam} | {MODEL_LABEL[model]} | — | — | "
+                             f"— | — | 0 | skip: {reason} |")
+                continue
+            runs = sorted(runs, key=lambda r: r["seed"])
+            row = [final_metric(runs, k) or "—" for k in METRICS]
+            wall = sum(r["wall_clock_s"] for r in runs) / len(runs)
+            # a probabilistic-ensemble run recorded without the loss-variant
+            # tag may have trained under another loss
+            mark = " †" if any(
+                r.get("config", {}).get("ensemble", 1) > 1
+                and r.get("config", {}).get("probabilistic") is not False
+                and "loss_variant" not in r for r in runs) else ""
+            lines.append(f"| {fam} | {MODEL_LABEL[model]} | {row[0]} | "
+                         f"{row[1]} | {row[2]} | {row[3]} | {len(runs)}{mark}"
+                         f" | {wall / 60:.1f} min |")
+    return lines
+
+
+METRICS = ("eval/return_mode0", "eval/return_mode1", "eval/return_mode2",
+           "collect/mean_episode_return")
+
+
+def compare(raw_dir: str, ref_dir: str) -> list:
+    """A table of each (family, model) of ``raw_dir`` beside the same row of
+    ``ref_dir`` (e.g. the JAX package's ``results/raw``): per metric, this
+    directory's mean over its runs, the reference's mean ± half-range over
+    its seeds, and "out" where the two means differ by more than the
+    half-range, "out ×2" by more than twice it. Unrounded to 0.1."""
+    cells, _ = load_cells(raw_dir)
+    refs, _ = load_cells(ref_dir)
+    lines = ["| family | model | train | moderate | extreme | collect | "
+             "runs / ref seeds |", "|---|---|---|---|---|---|---|"]
+    for fam in FAMILIES:
+        for model in MODELS:
+            runs, ref = cells.get((fam, model)), refs.get((fam, model), [])
+            if not runs:
+                continue
+            parts = []
+            for key in METRICS:
+                ours = [v for v in (_run_value(r, key) for r in runs)
+                        if v is not None]
+                theirs = [v for v in (_run_value(r, key) for r in ref)
+                          if v is not None]
+                if not ours or not theirs:
+                    parts.append("—")
+                    continue
+                mean = sum(ours) / len(ours)
+                ref_mean = sum(theirs) / len(theirs)
+                half = (max(theirs) - min(theirs)) / 2
+                gap = abs(mean - ref_mean)
+                mark = ("" if gap <= half else
+                        " out" if gap <= 2 * half else " out ×2")
+                parts.append(
+                    f"{mean:.1f} / {ref_mean:.1f} ± {half:.1f}{mark}")
+            lines.append(f"| {fam} | {MODEL_LABEL[model]} | "
+                         + " | ".join(parts)
+                         + f" | {len(runs)} / {len(ref)} |")
+    return lines
+
+
+def render(raw_dir: str = RAW) -> list:
+    """The lines of RESULTS_TORCH.md for the cells in ``raw_dir``."""
+    cells, fails = load_cells(raw_dir)
+    cards = sorted({r.get("card", "not recorded")
+                    for runs in cells.values() for r in runs})
+    return [
+        "# RESULTS_TORCH — the result matrix on the PyTorch port",
+        "",
+        "Generated by `python -m cadm_tpu_torch.cli.results` from "
+        "`results/torch/raw/` (each cell = mean over a run's last TWO "
+        "recorded evals — each eval = mean return over `eval_envs` full "
+        "episodes — then mean ± half-range over seeds; discrete paper "
+        "randomization sets, warm-started CEM, epoch fit protocol — configs "
+        "in `cadm_tpu_torch/cli/matrix.py`, the reference's "
+        "`scripts/run_matrix.py` values). The JAX package's table is "
+        "`RESULTS.md`.",
+        "",
+        *table(cells, fails),
+        "",
+        "Notes:",
+        "- train/moderate/extreme = hidden-parameter ranges mode 0/1/2 "
+        "(scale sets {0.75,0.85,1.0,1.15,1.25} / {0.4,0.5,1.5,1.6} / "
+        "{0.2,0.3,1.7,1.8}).",
+        "- collect = mean return of episodes finished during on-policy "
+        "collection at the final iteration (train range).",
+        "- Each run executes on one CUDA card (each cell's `card`: "
+        + ("; ".join(cards) if cards else "none yet") + "); wall-clock is "
+        "the training loop's (a rigid family's first cell in a fresh "
+        "checkout also builds the CUDA kernels).",
+        "- † = at least one probabilistic-ensemble run has no recorded "
+        "loss-variant tag.",
+        "- hopper and slim_humanoid run the MBBL fixed-horizon protocol, "
+        "under which true-sim returns move <5% across the ranges "
+        "(RESULTS.md's note), so flat train≈moderate≈extreme rows there "
+        "are a property of the benchmark. cripple_ant's moderate and "
+        "extreme are the same distribution (held-out leg 3).",
+        "",
+    ]
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--raw", default=RAW, help="directory of the cell JSONs")
+    p.add_argument("--out", default=OUT, help="the Markdown file to write")
+    p.add_argument("--print", action="store_true", help="also print it")
+    p.add_argument("--against", default=None, metavar="REF_RAW",
+                   help="also print each row beside REF_RAW's (e.g. "
+                        "results/raw, the JAX package's cells)")
+    args = p.parse_args(argv)
+    lines = render(args.raw)
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines))
+    print(f"wrote {args.out}")
+    if args.print:
+        print("\n".join(lines))
+    if args.against:
+        print("\n".join(compare(args.raw, args.against)))
+
+
+if __name__ == "__main__":
+    main()

@@ -57,6 +57,13 @@ from cadm_tpu_torch.models.nets import (
 Tensor = torch.Tensor
 CONTEXTS = ("none", "stacked", "encoder", "rnn")
 
+# Semantics marker of the probabilistic-member loss (the decoupled form of
+# the module docstring), recorded into every result-matrix
+# cell (``cli/matrix.py``) so cells of another loss stay distinguishable in
+# the rendered table. The reference's own value; bump on any change to
+# ``Dynamics._head_nll``'s semantics.
+LOSS_VARIANT = "decoupled-sg-v1"
+
 
 @dataclasses.dataclass(frozen=True)
 class DynamicsConfig:

@@ -91,11 +91,24 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    sharing it), a finite loss alike on every rank. Every rank's K1/K2
    launches = frame_skip × its control steps.
 
-Each path of phases 7–11 sets the launch counts to 0 before it runs and
+12. the result-matrix runner (``cadm_tpu_torch.cli.matrix.main``) on
+   ``half_cheetah cadm s0`` at full width (256 envs, CEM 256 × 30 × 5
+   warm-started, heads 4×200, an 8000-column ring, eval 32 envs), cut in
+   depth only through a copy of its table (TRAIN_DEPTH), its output in a
+   temporary directory: the cell JSON has the keys of the reference's
+   record (``results/raw/half_cheetah__cadm__s1.json``, read as data) plus
+   ``code_version``, ``loss_variant`` and ``card``, its history columns and
+   config are the record's (bar the seed, the cut and
+   ``max_parallel_rollouts``), every value finite; K1/K2 launches =
+   frame_skip × control steps; a second ``main`` skips the done cell with 0
+   launches; ``cli.results.render`` gives the cell's row. Prints the full
+   cell's planned and eval steps' time at the measured rates.
+
+Each path of phases 7–12 sets the launch counts to 0 before it runs and
 reads them after (in its rank's process on a mesh).
 
-``python3 chip_smoke.py --only mesh`` runs phase 1 and phase 11 alone and
-prints each path's launches (no JSON lines).
+``python3 chip_smoke.py --only mesh`` (``--only matrix``) runs phase 1 and
+phase 11 (12) alone and prints each path's launches (no JSON lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -170,21 +183,10 @@ PPO_KEYS = [
     "eval/return_mode2", "eval/return_mode2_std",
 ]
 PPO_DEPTH = ["--n-itr", "2", "--env-horizon", "100"]
-# The cheetah's row of the result matrix (RESULTS.md:14-16 for the
-# baselines): FAMILY_BASE["half_cheetah"] of scripts/run_matrix.py:56-61 and
-# its MODEL_VARIANTS (:103, :155-157), which run_matrix puts on a bare
-# ExperimentConfig with eval modes 0, 1, 2. Copied, not imported (that
-# script imports the JAX package). The model widths are the defaults:
-# heads 4×200 (GrBAL's net hidden[:3]), z 10, rnn_hidden 64, K 10.
-MATRIX_CHEETAH = dict(
-    env="half_cheetah", planner="cem", n_candidates=256, plan_horizon=30,
-    n_envs=256, steps_per_itr=500, n_itr=16, buffer_capacity=8000,
-    batch_size=256, eval_envs=32, warm_start=True, fit_protocol="epochs",
-    eval_every=3, eval_modes=(0, 1, 2))
-MATRIX_MODELS = {"cadm": dict(model="cadm", ensemble=1),
-                 "stacked": dict(model="stacked", ensemble=1),
-                 "rebal": dict(model="rnn", ensemble=1),
-                 "grbal": dict(model="grbal", ensemble=1)}
+# The cheetah's row of the result matrix (RESULTS.md:14-19) comes from
+# `cli.matrix`'s copy of the reference's tables (`matrix_argv`). The model
+# widths are the defaults: heads 4×200 (GrBAL's net hidden[:3]), z 10,
+# rnn_hidden 64, K 10.
 BASELINES = ("stacked", "rebal", "grbal")
 # each System's main path and the batch its preset runs: K1's and K2's
 # inputs are captured there (phase 2)
@@ -894,8 +896,13 @@ def cli_flags(fields: dict) -> list:
 
 
 def matrix_argv(model: str) -> list:
-    """The matrix's cheetah cell of ``model`` as CLI flags."""
-    return cli_flags({**MATRIX_CHEETAH, **MATRIX_MODELS[model]})
+    """The matrix's cheetah cell of ``model`` as CLI flags: the family's
+    base, the variant over it, eval modes 0, 1, 2 (``cli.matrix``'s
+    tables)."""
+    from cadm_tpu_torch.cli.matrix import FAMILY_BASE, MODEL_VARIANTS
+
+    return cli_flags({**FAMILY_BASE["half_cheetah"], **MODEL_VARIANTS[model],
+                      "eval_modes": (0, 1, 2)})
 
 
 def evaluating_itrs(cfg) -> list:
@@ -1574,6 +1581,104 @@ def run_mesh():
     return paths
 
 
+# ---------------------------------------------------- phase 12: the matrix --
+# the newest reference record of the cell (s0 predates the loss-variant tag
+# and three history columns its runner writes now)
+MATRIX_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "results", "raw", "half_cheetah__cadm__s1.json")
+
+
+def run_matrix(pgs, fk_kernel):
+    """``cli.matrix.main`` on ``half_cheetah cadm s0`` at full width (256
+    envs, CEM 256 × 30 × 5, heads 4×200, an 8000-column ring), cut in depth
+    by TRAIN_DEPTH through a copy of the runner's table, its output
+    directories in a temporary one. Checks the cell JSON against the
+    reference's record, the launches, a second run skipping the done cell
+    and the renderer's row; returns the launches of the first run."""
+    from unittest import mock
+
+    from cadm_tpu_torch.cli import matrix, results
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+
+    cut = {f[2:].replace("-", "_"): int(v)
+           for f, v in zip(TRAIN_DEPTH[::2], TRAIN_DEPTH[1::2])}
+    table = {**matrix.FAMILY_BASE,
+             "half_cheetah": {**matrix.FAMILY_BASE["half_cheetah"], **cut}}
+    argv = ["--families", "half_cheetah", "--models", "cadm", "--seeds",
+            str(SEED)]
+    name = matrix.cell_name("half_cheetah", "cadm", SEED)
+    with open(MATRIX_REFERENCE) as f:
+        ref = json.load(f)
+    log, launched, again = [], [], []
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(matrix, "FAMILY_BASE", table), \
+            mock.patch.object(matrix, "RESULTS_DIR", f"{tmp}/raw"), \
+            mock.patch.object(matrix, "CKPT_DIR", f"{tmp}/ckpt"):
+        t0 = time.perf_counter()
+        with timed(MBTrainer, ("_collect", "evaluate"), log), \
+                counted(pgs, fk_kernel, launched):
+            matrix.main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(f"{tmp}/raw/{name}.json") as f:
+            cell = json.load(f)
+        snapshot = torch.load(f"{tmp}/ckpt/{name}.pt", map_location="cpu",
+                              weights_only=True)
+        with counted(pgs, fk_kernel, again):
+            matrix.main(argv)
+        rows = [r for r in results.render(f"{tmp}/raw")
+                if r.startswith("| half_cheetah | Vanilla + CaDM |")]
+        left = sorted(os.listdir(f"{tmp}/raw"))
+
+    cols = set().union(*cell["history"])
+    ref_cols = set().union(*ref["history"])
+    values = [v for row in cell["history"] for v in row.values()]
+    print(f"matrix {name}: keys {sorted(cell)}; {len(cell['history'])} rows, "
+          f"{len(cols)} history columns; code_version {cell['code_version']}, "
+          f"loss_variant {cell['loss_variant']}, card {cell['card']}; "
+          f"training {cell['wall_clock_s']:.1f} s of a {wall:.1f} s main; "
+          f"snapshot {sorted(snapshot)}; files {left}")
+    expected = set(ref) | {"code_version", "loss_variant", "card"}
+    if set(cell) != expected or cols != ref_cols or not all(
+            math.isfinite(v) for v in values) or cell["card"] != card_line():
+        raise AssertionError(
+            f"matrix {name}: keys {sorted(set(cell) ^ expected)} differ, "
+            f"columns {sorted(cols ^ ref_cols)} differ, or a value is not "
+            f"finite, or card {cell['card']!r}")
+    # the config is the reference cell's, bar the seed, the depth cut and
+    # the dropped max_parallel_rollouts
+    differ = {k: (cell["config"].get(k), v) for k, v in ref["config"].items()
+              if k not in ("seed", "max_parallel_rollouts", *cut)
+              and cell["config"].get(k) != v}
+    if differ or cell["loss_variant"] != ref["loss_variant"]:
+        raise AssertionError(f"matrix {name}: config differs {differ}")
+    # the full cell's time at this run's rates: 15 planned iterations of
+    # 500 steps, 6 evals × 3 modes of 1000 steps (fits not counted)
+    planned = next(s / a[0].cfg.steps_per_itr for n, s, a, _ in log
+                   if n == "_collect" and not a[6])
+    evals = [s / a[0].env.horizon for n, s, a, _ in log if n == "evaluate"]
+    eval_step = sum(evals) / len(evals)
+    full = {**matrix.FAMILY_BASE["half_cheetah"],
+            **matrix.MODEL_VARIANTS["cadm"]}
+    n_evals = sum((i + 1) % full["eval_every"] == 0 or i == full["n_itr"] - 1
+                  for i in range(full["n_itr"]))
+    estimate = ((full["n_itr"] - 1) * full["steps_per_itr"] * planned
+                + n_evals * 3 * 1000 * eval_step)
+    print(f"matrix {name}: planned collect {1e3 * planned:.1f} ms per step "
+          f"at {full['n_envs']} envs, eval {1e3 * eval_step:.1f} ms per step "
+          f"at {full['eval_envs']} envs; the full cell's planned and eval "
+          f"steps alone at these rates: {estimate:.0f} s")
+    print(f"matrix second main (cell done): launches {again}; renderer: "
+          f"{rows}")
+    if again != [0, 0, 0] or len(rows) != 1 or "| 1 |" not in rows[0]:
+        raise AssertionError(f"matrix: the done cell ran again ({again}) or "
+                             f"the renderer's row is {rows}")
+    check_launches(f"matrix {name}", launched, log[0][2][0].env.frame_skip,
+                   control_steps(log))
+    return launched
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
                  **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -1587,7 +1692,7 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port on the card.")
-    parser.add_argument("--only", choices=["mesh"],
+    parser.add_argument("--only", choices=["mesh", "matrix"],
                         help="run phase 1 and this phase alone")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
@@ -1596,6 +1701,7 @@ def main(argv=None) -> int:
         return 1
     # imported only once a card is known to exist
     from cadm_tpu_torch import envs
+    from cadm_tpu_torch.cli.matrix import MODEL_VARIANTS
     from cadm_tpu_torch.cli.presets import PRESETS
     from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
     from cadm_tpu_torch.ops import _build, fk_kernel, pgs
@@ -1611,8 +1717,10 @@ def main(argv=None) -> int:
     path = _build.build()
     _build.lib()
     print(f"build: nvcc sm_90a -> {path} in {time.perf_counter() - t0:.1f} s")
-    if only == "mesh":
-        for name, counts in run_mesh().items():
+    if only:
+        paths = (run_mesh() if only == "mesh" else
+                 {"matrix half_cheetah cadm": run_matrix(pgs, fk_kernel)})
+        for name, counts in paths.items():
             print(f"{name}: launches pgs/full_dyn/fk_vel {counts}")
         print(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1631,8 +1739,8 @@ def main(argv=None) -> int:
         check_toy_slice(PRESETS, preset)
         check_toy_fit(PRESETS, preset)
     for name in BASELINES:
-        check_toy_slice(PRESETS, **MATRIX_MODELS[name])
-        check_toy_fit(PRESETS, **MATRIX_MODELS[name])
+        check_toy_slice(PRESETS, **MODEL_VARIANTS[name])
+        check_toy_fit(PRESETS, **MODEL_VARIANTS[name])
     check_toy_ppo(PRESETS)
     # every path starts with the counts at 0 and reads them at its end
     paths = {f"train {p}": run_training(pgs, fk_kernel, f"train {p}",
@@ -1653,6 +1761,7 @@ def main(argv=None) -> int:
         step_ms[preset], paths[f"act {preset}"] = run_full_slice(
             PRESETS, pgs, fk_kernel, preset, n)
     paths.update(run_mesh())
+    paths["matrix half_cheetah cadm"] = run_matrix(pgs, fk_kernel)
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),

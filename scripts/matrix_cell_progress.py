@@ -1,0 +1,42 @@
+"""Run result-matrix cells of the PyTorch port with a line per trainer phase.
+
+``python -m cadm_tpu_torch.cli.matrix`` prints nothing until a cell ends,
+and a model-based cell at the matrix's width can take longer than a job's
+time limit. This runs the same ``cli.matrix.main`` (same arguments, same
+files, same numbers) and prints, after every collect, fit and eval call of
+``MBTrainer``, the seconds since the start and the call's own seconds, so
+a cut run still shows how far it got and at what rate.
+
+    python scripts/matrix_cell_progress.py --families half_cheetah \\
+        --models cadm --seeds 0
+"""
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from cadm_tpu_torch.cli import matrix  # noqa: E402
+from cadm_tpu_torch.train.mb_trainer import MBTrainer  # noqa: E402
+
+T0 = time.time()
+
+
+def stamp(name: str) -> None:
+    orig = getattr(MBTrainer, name)
+
+    def inner(self, *args, **kwargs):
+        t = time.time()
+        out = orig(self, *args, **kwargs)
+        print(f"{name} ended at {time.time() - T0:.1f} s "
+              f"({time.time() - t:.1f} s)", flush=True)
+        return out
+
+    setattr(MBTrainer, name, inner)
+
+
+if __name__ == "__main__":
+    # before the trainer is built: it binds its fit method at construction
+    for n in ("_collect", "_fit_epochs_impl", "_fit_impl", "evaluate"):
+        stamp(n)
+    matrix.main()

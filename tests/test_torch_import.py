@@ -1,11 +1,13 @@
 """The port runs without jax, flax, optax, orbax or mujoco (the card's
-machine has none of them) and without the JAX package.
+machine has none of them), without the JAX package and without the
+reference's scripts.
 
 Runs in a subprocess because this suite's conftest imports jax: there those
 modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
 ``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
 baselines, the checkpointer, the trajectory sink, the analytic envs, the
-wrapper, the Sampler, the PPO trainer and the mesh among them), the four
+wrapper, the Sampler, the PPO trainer, the mesh and the result-matrix
+runner and renderer among them), the four
 Systems are loaded from their npz files, the acting slice runs at toy
 width on the CPU,
 toy ReBAL and GrBAL runs train, checkpoint and resume, a bare config builds
@@ -22,7 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import sys
     for name in ("jax", "jaxlib", "flax", "optax", "orbax", "mujoco",
-                 "cadm_tpu"):
+                 "cadm_tpu", "scripts"):
         sys.modules[name] = None  # any import of them raises ImportError
 
     import dataclasses, importlib, pkgutil
@@ -41,6 +43,7 @@ SCRIPT = textwrap.dedent("""
             "cadm_tpu_torch.envs.wrappers", "cadm_tpu_torch.train.sampler",
             "cadm_tpu_torch.train.ppo", "cadm_tpu_torch.parallel.mesh",
             "cadm_tpu_torch.parallel.dryrun", "cadm_tpu_torch.core.rng",
+            "cadm_tpu_torch.cli.matrix", "cadm_tpu_torch.cli.results",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
