@@ -103,12 +103,26 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    frame_skip × control steps; a second ``main`` skips the done cell with 0
    launches; ``cli.results.render`` gives the cell's row. Prints the full
    cell's planned and eval steps' time at the measured rates.
+13. the snapshot analyses (``cadm_tpu_torch.analysis``) on phase 12's
+   snapshot at the cell's full width: probe_context with the planner (one
+   round of 12 steps at 256 envs) and with the random policy on mode 1,
+   probe_hstep at H 30 over 32 envs, probe_blowup with the cell's 256
+   candidates over 8 start states, probe_dist with the snapshot as
+   generator and eval cell at 8 envs (40 + 40 steps), probe_ranges on the
+   cheetah (the random policy at the full 1000-step horizon and the
+   planner through the snapshot for 10 steps, 16 envs, 5 scales), ab_ts1
+   cut to 300 updates and closed loops of 50 steps, probe_epochs on
+   ``results/raw`` and ``results/torch/raw``: each record has the keys of
+   the reference's (its JSON under ``results/``), finite values and
+   fractions in [0, 1]; K1/K2 launches = frame_skip × each probe's env
+   control steps (0 for ab_ts1 and probe_epochs); each probe's wall time.
 
-Each path of phases 7–12 sets the launch counts to 0 before it runs and
+Each path of phases 7–13 sets the launch counts to 0 before it runs and
 reads them after (in its rank's process on a mesh).
 
 ``python3 chip_smoke.py --only mesh`` (``--only matrix``) runs phase 1 and
-phase 11 (12) alone and prints each path's launches (no JSON lines).
+phase 11 (12) alone, ``--only probes`` phases 1, 12 and 13, and prints each
+path's launches (no JSON lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -199,6 +213,8 @@ ANALYTIC_PRESETS = ("cartpole_vanilla_rs", "pendulum_cadm_cem")
 PPO_PRESETS = ("hopper_ppo_cadm", "slim_humanoid_ppo_cadm")
 ACT_PRESETS = (("halfcheetah_cadm_cem", 2048), ("slim_humanoid_cadm_cem", 512),
                ("hopper_cadm_cem", 512))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+AB_TS1_STEPS = 300  # ab_ts1's ensemble updates in phase 13 (3000 by default)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 and FP64 FLOP/s
 # outside the tensor cores
 HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
@@ -1584,8 +1600,8 @@ def run_mesh():
 # ---------------------------------------------------- phase 12: the matrix --
 # the newest reference record of the cell (s0 predates the loss-variant tag
 # and three history columns its runner writes now)
-MATRIX_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "results", "raw", "half_cheetah__cadm__s1.json")
+MATRIX_REFERENCE = os.path.join(ROOT, "results", "raw",
+                                "half_cheetah__cadm__s1.json")
 
 
 def run_matrix(pgs, fk_kernel):
@@ -1594,7 +1610,8 @@ def run_matrix(pgs, fk_kernel):
     by TRAIN_DEPTH through a copy of the runner's table, its output
     directories in a temporary one. Checks the cell JSON against the
     reference's record, the launches, a second run skipping the done cell
-    and the renderer's row; returns the launches of the first run."""
+    and the renderer's row; returns the launches of the first run and the
+    snapshot it wrote (plain dicts, on the host)."""
     from unittest import mock
 
     from cadm_tpu_torch.cli import matrix, results
@@ -1676,7 +1693,204 @@ def run_matrix(pgs, fk_kernel):
                              f"the renderer's row is {rows}")
     check_launches(f"matrix {name}", launched, log[0][2][0].env.frame_skip,
                    control_steps(log))
-    return launched
+    return launched, snapshot
+
+
+# ---------------------------------------------------- phase 13: the probes --
+# the reference's record each probe's JSON must hold the keys of
+PROBE_RECORDS = {
+    "context planner": "context_probe/half_cheetah__ppo_cadm__s0.json",
+    "context random mode 1": "context_probe/half_cheetah__ppo_cadm__s0.json",
+    "hstep": "hstep_probe/cripple_ant__cadm__s0.json",
+    "blowup": "blowup_probe/cripple_ant__cadm__s0.json",
+    "dist": "dist_probe/cripple_ant__cadm__s0.json",
+    "ranges": "range_potency.json",
+    "ab_ts1": "ab_ts1.json",
+    "epochs results/raw": "epochs_audit.json",
+    "epochs results/torch/raw": "epochs_audit.json",
+}
+# control steps of the probes' collects (≥ the CaDM window K = 10, so the
+# context probe's windows are full), the dist probe's collects, the
+# planner's episodes in the range probe
+PROBE_STEPS, DIST_STEPS, RANGES_PLANNER_HORIZON = 12, 40, 10
+HSTEP_ENVS, HSTEP_H, RANGES_ENVS = 32, 30, 16
+
+
+def key_paths(x, prefix=""):
+    """The dotted key paths of a JSON value, through dicts and the first
+    element of lists; a cell name or a scale becomes '*'."""
+    if isinstance(x, list):
+        return (key_paths(x[0], prefix + "[]")
+                if x and isinstance(x[0], (dict, list)) else set())
+    if not isinstance(x, dict):
+        return set()
+    out = set()
+    for k, v in x.items():
+        k = "*" if "__" in k or k.replace(".", "").isdigit() else k
+        out |= {f"{prefix}.{k}"} | key_paths(v, f"{prefix}.{k}")
+    return out
+
+
+def json_numbers(x, key=""):
+    """(key, number) of every number in a JSON value."""
+    if isinstance(x, dict):
+        return [n for k, v in x.items() for n in json_numbers(v, k)]
+    if isinstance(x, list):
+        return [n for v in x for n in json_numbers(v, key)]
+    return ([(key, x)] if isinstance(x, (int, float))
+            and not isinstance(x, bool) else [])
+
+
+def check_probe_record(tag, out, record):
+    """``out`` has the keys of the reference's ``record`` (a range record:
+    its hopper entry's, whose planner is a Vanilla one), only finite
+    numbers, and every fraction in [0, 1]."""
+    with open(os.path.join(ROOT, "results", record)) as f:
+        ref = json.load(f)
+    if record == "range_potency.json":
+        ref = {**ref["hopper"], "scales": {s: {"random": p["random"]}
+                                           for s, p in ref["hopper"][
+                                               "scales"].items()}}
+    missing = key_paths(ref) - key_paths(out)
+    nums = json_numbers(out)
+    bad = [(k, v) for k, v in nums if not math.isfinite(v)
+           or ("frac" in k and not 0.0 <= v <= 1.0)]
+    if missing or bad or not nums:
+        raise AssertionError(f"probes {tag}: keys {sorted(missing)} missing, "
+                             f"values {bad[:5]} not finite or not in [0, 1]")
+
+
+def run_probes(pgs, fk_kernel, snap):
+    """Phase 13: every snapshot analysis (``cadm_tpu_torch/analysis``) on
+    phase 12's ``half_cheetah cadm s0`` snapshot ``snap`` at the cell's
+    full width (256 envs, CEM 256 × 30 × 5, heads 4×200), cut in depth
+    only. Each probe's record has the keys of the reference's, finite
+    values, fractions in [0, 1], and K1/K2 launches = frame_skip × its env
+    control steps; returns each probe's launches."""
+    from cadm_tpu_torch.analysis import (
+        ab_ts1,
+        probe_blowup,
+        probe_context,
+        probe_dist,
+        probe_epochs,
+        probe_hstep,
+        probe_ranges,
+        snapshot,
+    )
+    from cadm_tpu_torch.cli.matrix import cell_name
+
+    cell = cell_name("half_cheetah", "cadm", SEED)
+    t_phase = time.perf_counter()
+    paths, walls = {}, {}
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(snap, os.path.join(tmp, cell + ".pt"))
+        cfg, env, dyn, planner, _, state = snapshot.load_cell(
+            cell, device="cuda", ckpt_dir=tmp)
+        frame_skip = env.frame_skip
+
+        def probe(tag, steps, fn, show):
+            launched = []
+            t0 = time.perf_counter()
+            with counted(pgs, fk_kernel, launched):
+                out = fn()
+                torch.cuda.synchronize()
+            walls[tag] = time.perf_counter() - t0
+            check_probe_record(tag, out, PROBE_RECORDS[tag])
+            print(f"probes {tag}: {walls[tag]:.1f} s; {show(out)}")
+            check_launches(f"probes {tag}", launched,
+                           frame_skip if steps else 0, steps)
+            paths[f"probe {tag}"] = launched
+            return out
+
+        def r2(out):
+            return ", ".join(f"{k} R² {v['held_out_r2']:.4f}"
+                             for k, v in out["targets"].items())
+
+        def context(**kw):
+            out = probe_context.run_probe(
+                cell, rounds=1, steps=PROBE_STEPS, device="cuda",
+                ckpt_dir=tmp, log=lambda *a: None, **kw)[0]
+            if out["n_windows"] < 1 or sorted(out["targets"]) != [
+                    "damping_scale", "mass_scale"]:
+                raise AssertionError(f"probes context: {out}")
+            return out
+
+        probe("context planner", PROBE_STEPS, context,
+              lambda o: f"{o['n_windows']} windows at {cfg.n_envs} envs, "
+              + r2(o))
+        probe("context random mode 1", PROBE_STEPS,
+              lambda: context(random_policy=True, mode=1),
+              lambda o: f"{o['n_windows']} windows, " + r2(o))
+        probe("hstep", PROBE_STEPS + HSTEP_H,
+              lambda: probe_hstep.run_probe(
+                  cell, n_envs=HSTEP_ENVS, horizon=HSTEP_H,
+                  collect_steps=PROBE_STEPS, device="cuda", ckpt_dir=tmp),
+              lambda o: f"H {o['horizon']} over {o['n_envs']} envs, "
+              f"open-loop nmse final {o['openloop_nmse_final']} mean "
+              f"{o['openloop_nmse_mean']}, alive final "
+              f"{o['alive_frac_by_step'][-1]}")
+        probe("blowup", PROBE_STEPS,
+              lambda: probe_blowup.run_probe(
+                  cell, n_envs=8, steps=PROBE_STEPS, device="cuda",
+                  ckpt_dir=tmp),
+              lambda o: f"{o['candidates']} candidates × {o['horizon']} "
+              f"steps from {o['n_start_states']} start states, alive final "
+              f"{o['alive_frac_final']}, max |pred| final "
+              f"{o['max_abs_pred_by_step'][-1]:.2f}")
+        dist_args = probe_dist.build_parser().parse_args([
+            "--gen-cell", cell, "--eval-cells", cell, "--steps",
+            str(DIST_STEPS), "--ckpt-dir", tmp, "--out-dir", tmp])
+        probe("dist", 2 * DIST_STEPS, lambda: probe_dist.run_probe(dist_args),
+              lambda o: f"8 envs × {DIST_STEPS} random + {DIST_STEPS} planned "
+              f"steps, nmse {o['nmse'][cell]}")
+
+        def ranges():
+            scales = probe_ranges.scale_sweep(
+                env, RANGES_ENVS, {"random": probe_ranges.random_policy(env)})
+            planned = probe_ranges.scale_sweep(
+                env, RANGES_ENVS, {"planner_cadm_s0": probe_ranges.
+                                   planner_policy(env, dyn, planner, state)},
+                RANGES_PLANNER_HORIZON)
+            for s, p in planned.items():
+                scales[s].update(p)
+            return {"horizon": env.horizon,
+                    "alive_bonus": float(getattr(env, "alive_bonus", 0.0)),
+                    "n_envs": RANGES_ENVS, "scales": scales}
+
+        n_scales = len(probe_ranges.SCALES)
+        probe("ranges", n_scales * (env.horizon + RANGES_PLANNER_HORIZON),
+              ranges, lambda o: f"{n_scales} scales × ({env.horizon} random + "
+              f"{RANGES_PLANNER_HORIZON} planned steps) at {RANGES_ENVS} envs; "
+              "random return at 0.2 / 1.8: " + " / ".join(
+                  f"{o['scales'][s]['random']['return_mean']:.1f}"
+                  for s in ("0.2", "1.8")))
+
+        def ab():
+            t0 = time.time()
+            env_c, model, st = ab_ts1.train_cartpole_ensemble(
+                steps=AB_TS1_STEPS, device="cuda", log=lambda *a: None)
+            study = ab_ts1.elite_study(env_c, model, st, draws=4)
+            cl = {m: [ab_ts1.closed_loop(env_c, model, st, m, s, t=50)
+                      for s in (0, 1)] for m in ab_ts1.MODES}
+            return {"elite_study": study, "closed_loop_mean_reward_sum": cl,
+                    "wall_s": time.time() - t0}
+
+        def ab_line(o):
+            st = o["elite_study"]
+            return (f"{AB_TS1_STEPS} updates, elite overlap block vs exact "
+                    f"{st['elite_overlap_block_vs_exact']:.3f} (exact floor "
+                    f"{st['elite_overlap_exact_vs_exact_noise_floor']:.3f}), "
+                    f"closed loop {o['closed_loop_mean_reward_sum']}")
+
+        probe("ab_ts1", 0, ab, ab_line)
+        for raw in ("results/raw", "results/torch/raw"):
+            probe(f"epochs {raw}", 0,
+                  lambda: probe_epochs.audit(os.path.join(ROOT, raw)),
+                  lambda o: f"{len(o)} cells")
+    print(f"probes: phase {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()) + ")")
+    return paths
 
 
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
@@ -1692,8 +1906,9 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port on the card.")
-    parser.add_argument("--only", choices=["mesh", "matrix"],
-                        help="run phase 1 and this phase alone")
+    parser.add_argument("--only", choices=["mesh", "matrix", "probes"],
+                        help="run phase 1 and this phase alone (probes: "
+                             "phase 12, whose snapshot they read, and 13)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
@@ -1717,9 +1932,14 @@ def main(argv=None) -> int:
     path = _build.build()
     _build.lib()
     print(f"build: nvcc sm_90a -> {path} in {time.perf_counter() - t0:.1f} s")
+    if only == "mesh":
+        paths = run_mesh()
+    elif only:
+        launched, snap = run_matrix(pgs, fk_kernel)
+        paths = {"matrix half_cheetah cadm": launched}
+        if only == "probes":
+            paths.update(run_probes(pgs, fk_kernel, snap))
     if only:
-        paths = (run_mesh() if only == "mesh" else
-                 {"matrix half_cheetah cadm": run_matrix(pgs, fk_kernel)})
         for name, counts in paths.items():
             print(f"{name}: launches pgs/full_dyn/fk_vel {counts}")
         print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1761,7 +1981,8 @@ def main(argv=None) -> int:
         step_ms[preset], paths[f"act {preset}"] = run_full_slice(
             PRESETS, pgs, fk_kernel, preset, n)
     paths.update(run_mesh())
-    paths["matrix half_cheetah cadm"] = run_matrix(pgs, fk_kernel)
+    paths["matrix half_cheetah cadm"], snap = run_matrix(pgs, fk_kernel)
+    paths.update(run_probes(pgs, fk_kernel, snap))
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),

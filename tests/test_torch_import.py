@@ -6,8 +6,8 @@ Runs in a subprocess because this suite's conftest imports jax: there those
 modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
 ``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
 baselines, the checkpointer, the trajectory sink, the analytic envs, the
-wrapper, the Sampler, the PPO trainer, the mesh and the result-matrix
-runner and renderer among them), the four
+wrapper, the Sampler, the PPO trainer, the mesh, the result-matrix
+runner and renderer and the snapshot analyses among them), the four
 Systems are loaded from their npz files, the acting slice runs at toy
 width on the CPU,
 toy ReBAL and GrBAL runs train, checkpoint and resume, a bare config builds
@@ -44,6 +44,14 @@ SCRIPT = textwrap.dedent("""
             "cadm_tpu_torch.train.ppo", "cadm_tpu_torch.parallel.mesh",
             "cadm_tpu_torch.parallel.dryrun", "cadm_tpu_torch.core.rng",
             "cadm_tpu_torch.cli.matrix", "cadm_tpu_torch.cli.results",
+            "cadm_tpu_torch.analysis.snapshot",
+            "cadm_tpu_torch.analysis.probe_context",
+            "cadm_tpu_torch.analysis.probe_hstep",
+            "cadm_tpu_torch.analysis.probe_blowup",
+            "cadm_tpu_torch.analysis.probe_dist",
+            "cadm_tpu_torch.analysis.probe_epochs",
+            "cadm_tpu_torch.analysis.probe_ranges",
+            "cadm_tpu_torch.analysis.ab_ts1",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
