@@ -216,6 +216,15 @@ def render(raw_dir: str = RAW) -> list:
         "(RESULTS.md's note), so flat train≈moderate≈extreme rows there "
         "are a property of the benchmark. cripple_ant's moderate and "
         "extreme are the same distribution (held-out leg 3).",
+        "- PE-TS + CaDM runs probabilistic members, today's config in both "
+        "packages; RESULTS.md's cartpole and pendulum cells of that row ran "
+        "deterministic ones. On cartpole, the JAX package's own cell at "
+        "today's config (seed 0, trained on the CPU by "
+        "`scripts/run_jax_cpu_cell.py`) also falls below RESULTS.md's row "
+        "(`python -m cadm_tpu_torch.cli.results --raw results/torch/jax_cpu "
+        "--against results/raw`), but its extreme (119.1) stays above this "
+        "table's (81.0), n = 1 each. Pendulum's JAX cell at today's config "
+        "was not run.",
         "",
     ]
 

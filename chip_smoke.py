@@ -117,12 +117,25 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    fractions in [0, 1]; K1/K2 launches = frame_skip × each probe's env
    control steps (0 for ab_ts1 and probe_epochs); each probe's wall time.
 
-Each path of phases 7–13 sets the launch counts to 0 before it runs and
+14. the bench (``cadm_tpu_torch.bench.main([])``, in process, at the
+   reference's full shapes: 4096 half_cheetahs and 2048 slim_humanoids × 100
+   random-action steps, CEM at 256 envs × 200 candidates × horizon 30 with 5
+   probabilistic members, 50 updates of batch 256): its one stdout line is
+   JSON with the reference's keys, finite positive rates and this card's
+   name and power limit, printed here on a line of its own; K1/K2 launches
+   = 5 × 100 × (1 + 3) = 2,000 on each rigid line, none on the CEM and
+   training lines; K1 and K2 against their plain versions on inputs of a
+   random-action rollout at each rigid line's env count (4096 cheetahs,
+   2048 humanoids), as phase 2 does at the presets' counts; then
+   ``graft_entry.entry("cuda")``'s forward step (B=256) against the same
+   step on the CPU, within 1e-5.
+
+Each path of phases 7–14 sets the launch counts to 0 before it runs and
 reads them after (in its rank's process on a mesh).
 
-``python3 chip_smoke.py --only mesh`` (``--only matrix``) runs phase 1 and
-phase 11 (12) alone, ``--only probes`` phases 1, 12 and 13, and prints each
-path's launches (no JSON lines).
+``python3 chip_smoke.py --only mesh`` (``--only matrix``, ``--only bench``)
+runs phase 1 and phase 11 (12, 14) alone, ``--only probes`` phases 1, 12
+and 13, and prints each path's launches (no JSON lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -1893,6 +1906,140 @@ def run_probes(pgs, fk_kernel, snap):
     return paths
 
 
+# ----------------------------------------------------- phase 14: the bench --
+# the flagship forward step, card vs CPU: float32 matmul chains of ≤ 5
+# layers summed in another order (tests/test_torch_model.py's ATOL)
+ENTRY_ATOL = 1e-5
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "secondary", "device",
+              "shapes"}
+BENCH_SECONDARY = {"cem_model_rollouts_per_sec",
+                   "dynamics_train_steps_per_sec",
+                   "slim_humanoid_env_steps_per_sec"}
+
+
+def run_bench(pgs, fk_kernel, rdyn):
+    """Phase 14: ``cadm_tpu_torch.bench.main([])`` at its full shapes, in
+    process, its stdout captured: one JSON line with the reference's keys,
+    finite positive rates, the card's name and power limit; K1/K2 launches
+    = frame_skip × steps × (1 + ITERS) on each rigid line and none on the
+    CEM and training lines. K1 and K2 are then held to their plain
+    versions on inputs of each rigid line's own rollout (random actions in
+    [-1, 1] at the line's env count). Then ``graft_entry.entry("cuda")``'s
+    forward step on the card against the same step on the CPU, on its
+    example args and on seeded histories with invalid slots. Returns each
+    line's launches and the K1 and K2 checks."""
+    import io
+    from unittest import mock
+
+    from cadm_tpu_torch import bench, envs, graft_entry
+    from cadm_tpu_torch.core.types import tree_map
+
+    t_phase = time.perf_counter()
+    paths = {}
+
+    def counting(fn, tag):
+        def inner(*args, **kwargs):
+            launched = []
+            with counted(pgs, fk_kernel, launched):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            paths[f"bench {tag(args, kwargs)}"] = launched
+            return out
+        return inner
+
+    def env_tag(args, kwargs):
+        return args[2] if len(args) > 2 else kwargs.get("env_name",
+                                                        "half_cheetah")
+
+    out = io.StringIO()
+    gc.collect()
+    with mock.patch.object(bench, "bench_env_steps",
+                           counting(bench.bench_env_steps, env_tag)), \
+            mock.patch.object(bench, "bench_cem",
+                              counting(bench.bench_cem, lambda a, k: "cem")), \
+            mock.patch.object(bench, "bench_train_steps",
+                              counting(bench.bench_train_steps,
+                                       lambda a, k: "train")), \
+            contextlib.redirect_stdout(out):
+        bench.main([])
+    t_bench = time.perf_counter() - t_phase
+    stdout = out.getvalue().splitlines()
+    line = json.loads(stdout[-1])
+    print(f"bench line ({t_bench:.1f} s): {stdout[-1]}")
+    full = bench.FULL
+    sec = line["secondary"]
+    rates = [line["value"], *sec.values()]
+    if (len(stdout) != 1 or set(line) != BENCH_KEYS
+            or set(sec) != BENCH_SECONDARY or line["vs_baseline"] is not None
+            or not all(isinstance(r, float) and math.isfinite(r) and r > 0
+                       for r in rates)):
+        raise AssertionError(f"bench: stdout {stdout} is not one JSON line "
+                             f"with the keys and finite positive rates")
+    name, limit = line["device"]["name"], line["device"]["power_limit"]
+    if (line["device"]["type"] != "cuda"
+            or name != torch.cuda.get_device_name(0)
+            or card_line() != f"{name}, {limit}"
+            or line["shapes"]["env_steps"]["n_envs"] != full["n_envs"]
+            or line["shapes"]["slim_humanoid"]["n_envs"]
+            != full["n_envs"] // 2):
+        raise AssertionError(f"bench: device {line['device']} or shapes "
+                             f"{line['shapes']} are not this card's and the "
+                             f"full shapes ({card_line()})")
+    for tag in ("half_cheetah", "slim_humanoid"):
+        check_launches(f"bench {tag}", paths[f"bench {tag}"],
+                       envs.ENVS[tag].frame_skip,
+                       full["t"] * (1 + bench.ITERS))
+        if paths[f"bench {tag}"][2]:
+            raise AssertionError(f"bench {tag}: fk_vel launched")
+    for tag in ("cem", "train"):
+        print(f"bench {tag} launches: {paths[f'bench {tag}']}")
+        if paths[f"bench {tag}"] != [0, 0, 0]:
+            raise AssertionError(f"bench {tag} launched a physics kernel")
+    # the rigid lines' own shapes: outside any count, so these launches
+    # add to no path
+    k1_checks, k2_checks = [], []
+    dev = torch.device("cuda")
+    for tag, key in (("half_cheetah", "env_steps"),
+                     ("slim_humanoid", "slim_humanoid")):
+        n = line["shapes"][key]["n_envs"]
+        captured, smooth = capture_main_path(envs, rdyn, fk_kernel, dev, tag,
+                                             n)
+        k1_checks += check_pgs_main_path(pgs, captured, f"bench {tag} {n}")
+        k2_checks.append(check_full_dyn_main_path(fk_kernel, smooth,
+                                                  f"bench {tag} {n}"))
+        del captured, smooth
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry("cuda")
+    fn_cpu, _ = graft_entry.entry("cpu")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    hist_dobs, hist_act, _, obs, act = args[2:]
+    seeded = (*args[:2], torch.randn(hist_dobs.shape, generator=g,
+                                     device="cuda"),
+              torch.rand(hist_act.shape, generator=g, device="cuda") * 2 - 1,
+              (torch.rand(hist_dobs.shape[:2], generator=g, device="cuda")
+               > 0.3).float(),
+              torch.randn(obs.shape, generator=g, device="cuda"),
+              torch.rand(act.shape, generator=g, device="cuda") * 2 - 1)
+    errs = []
+    with torch.no_grad():
+        for inputs in (args, seeded):
+            y = fn(*inputs)
+            ref = fn_cpu(*tree_map(lambda x: x.cpu(), inputs))
+            if y.shape != (graft_entry.B, obs.shape[-1]) \
+                    or not torch.isfinite(y).all():
+                raise AssertionError(f"entry: output {tuple(y.shape)} or "
+                                     f"not finite")
+            errs.append((y.cpu() - ref).abs().max().item())
+    print(f"entry: output {tuple(y.shape)} {y.dtype}; card vs CPU max |err| "
+          f"example args {errs[0]:.3g}, seeded inputs {errs[1]:.3g} (limit "
+          f"{ENTRY_ATOL}); {time.perf_counter() - t0:.1f} s")
+    if max(errs) > ENTRY_ATOL:
+        raise AssertionError(f"entry: card vs CPU {errs} > {ENTRY_ATOL}")
+    print(f"bench: phase {time.perf_counter() - t_phase:.1f} s")
+    return paths, k1_checks, k2_checks
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
                  **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -1906,7 +2053,8 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port on the card.")
-    parser.add_argument("--only", choices=["mesh", "matrix", "probes"],
+    parser.add_argument("--only", choices=["mesh", "matrix", "probes",
+                                           "bench"],
                         help="run phase 1 and this phase alone (probes: "
                              "phase 12, whose snapshot they read, and 13)")
     only = parser.parse_args(argv).only
@@ -1934,6 +2082,8 @@ def main(argv=None) -> int:
     print(f"build: nvcc sm_90a -> {path} in {time.perf_counter() - t0:.1f} s")
     if only == "mesh":
         paths = run_mesh()
+    elif only == "bench":
+        paths = run_bench(pgs, fk_kernel, rdyn)[0]
     elif only:
         launched, snap = run_matrix(pgs, fk_kernel)
         paths = {"matrix half_cheetah cadm": launched}
@@ -1983,6 +2133,10 @@ def main(argv=None) -> int:
     paths.update(run_mesh())
     paths["matrix half_cheetah cadm"], snap = run_matrix(pgs, fk_kernel)
     paths.update(run_probes(pgs, fk_kernel, snap))
+    bench_paths, k1_bench, k2_bench = run_bench(pgs, fk_kernel, rdyn)
+    paths.update(bench_paths)
+    k1_path += k1_bench
+    k2_path += k2_bench
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),

@@ -7,7 +7,8 @@ modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
 ``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
 baselines, the checkpointer, the trajectory sink, the analytic envs, the
 wrapper, the Sampler, the PPO trainer, the mesh, the result-matrix
-runner and renderer and the snapshot analyses among them), the four
+runner and renderer, the snapshot analyses, the bench and the flagship
+forward step among them), the four
 Systems are loaded from their npz files, the acting slice runs at toy
 width on the CPU,
 toy ReBAL and GrBAL runs train, checkpoint and resume, a bare config builds
@@ -52,6 +53,7 @@ SCRIPT = textwrap.dedent("""
             "cadm_tpu_torch.analysis.probe_epochs",
             "cadm_tpu_torch.analysis.probe_ranges",
             "cadm_tpu_torch.analysis.ab_ts1",
+            "cadm_tpu_torch.bench", "cadm_tpu_torch.graft_entry",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
@@ -126,6 +128,12 @@ SCRIPT = textwrap.dedent("""
     paths = Sampler(env, 2).obtain_samples(gen, 4, random=True)
     assert ModelSampleProcessor().process_samples(paths)[
         "observations"].shape == (8, 3)
+
+    # the flagship forward step of graft_entry at B=256 on the CPU
+    from cadm_tpu_torch.graft_entry import entry
+
+    fn, args = entry("cpu")
+    assert fn(*args).shape == (256, 17)
 
     if not torch.cuda.is_available():
         try:
