@@ -72,7 +72,7 @@ class ExperimentConfig:
     cem_iters: int = 5
     cem_elites: int = 20
     warm_start: bool = False
-    ensemble_eval: str = "ts1"    # ts1 | mean | ts1_exact (see planners/mpc.py)
+    ensemble_eval: str = "ts1"    # ts1 | mean | ts1_exact | assign (mpc.py)
     # training loop
     n_itr: int = 20
     steps_per_itr: int = 200

@@ -14,6 +14,7 @@ here touches ``torch.distributed``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence
 
 import torch
@@ -76,11 +77,21 @@ def randint(gen, high: int, *shape: int, dim: int = 0) -> Tensor:
                                                  device=g.device), shape, dim)
 
 
+# Φ(±2) of the standard normal, mapped onto erfinv's domain [-1, 1]
+_TRUNC_LO = math.erf(-2.0 / math.sqrt(2.0))
+_TRUNC_HI = math.erf(2.0 / math.sqrt(2.0))
+
+
 def trunc_normal(gen, *shape: int, dim: int = 0) -> Tensor:
-    """Standard normal draws truncated to [-2, 2]; ``dim`` is the env
-    axis."""
+    """Standard normal draws truncated to [-2, 2]; ``dim`` is the env axis.
+
+    By the inverse CDF: one uniform draw per value whatever the values, so
+    a CUDA graph can hold it, and the same numbers under every PyTorch
+    version (``torch.nn.init.trunc_normal_`` rejects and redraws in some,
+    reading on the host whether any draw fell outside)."""
     def fn(s, g):
-        x = torch.empty(s, device=g.device)
-        return torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=g)
+        u = torch.empty(s, device=g.device).uniform_(_TRUNC_LO, _TRUNC_HI,
+                                                    generator=g)
+        return torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
 
     return _draw(gen, fn, shape, dim)

@@ -7,8 +7,10 @@ dataclasses, tuples, lists and dicts.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -23,6 +25,22 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available (pass device='cpu' to run on the CPU)")
     return device
+
+
+def constant(values, device, dtype=torch.float32) -> Tensor:
+    """Host ``values`` (a number sequence or numpy array) as a tensor on
+    ``device``, made at the first call per (values, device, dtype) and
+    shared after: callers read it and never write it. Code on the control
+    step uses it for its host constants, since a copy from host memory
+    inside a CUDA-graph capture is refused."""
+    a = np.asarray(values)
+    return _constant(tuple(a.ravel().tolist()), a.shape, dtype,
+                     torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def _constant(flat: tuple, shape: tuple, dtype, device) -> Tensor:
+    return torch.tensor(flat, dtype=dtype, device=device).reshape(shape)
 
 
 def tree_leaves(tree: PyTree) -> list:

@@ -56,6 +56,8 @@
 // of the output, in 16-byte vectors, consecutive lanes on consecutive words.
 #include <cuda_runtime.h>
 
+#include "launch_once.cuh"
+
 #include <cstdint>
 
 namespace {
@@ -70,7 +72,6 @@ constexpr int kFkThreads = 64;    // K3: a group of CADM_FK_LANES lanes per env
 #ifndef CADM_FK_LANES
 #define CADM_FK_LANES 8
 #endif
-constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int FREE = 0, SLIDE = 2, HINGE = 3;  // cadm_tpu.physics.rigid.system
 
 struct SysTable {
@@ -624,12 +625,10 @@ int launch_full_dyn(const void* table, const float* qpos, const float* qvel,
                     cudaStream_t stream) {
   constexpr int kGroups = kDynThreads / G;
   const size_t smem = (size_t)kGroups * scratch * sizeof(Real);
-  if (smem + sizeof(SysTable) > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        full_dyn_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static bool opted[cadm::kMaxDevices];  // this instantiation's opt-in
+  const cudaError_t e = cadm::opt_in_smem(
+      reinterpret_cast<const void*>(&full_dyn_kernel<G>), opted);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (E + kGroups - 1) / kGroups;
   full_dyn_kernel<G><<<blocks, kDynThreads, smem, stream>>>(
       static_cast<const SysTable*>(table), qpos, qvel, ctrl, mass_scale,
@@ -670,12 +669,10 @@ extern "C" int cadm_fk_vel(const void* table, const float* qpos,
     return (int)cudaErrorMisalignedAddress;
   constexpr int G = CADM_FK_LANES, kGroups = kFkThreads / G;
   const size_t smem = kGroups * fk_vel_env_bytes(nb, nq, nv);
-  if (smem + sizeof(SysTable) > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fk_vel_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static bool opted[cadm::kMaxDevices];  // this instantiation's opt-in
+  const cudaError_t e = cadm::opt_in_smem(
+      reinterpret_cast<const void*>(&fk_vel_kernel<G>), opted);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (E + kGroups - 1) / kGroups;
   fk_vel_kernel<G><<<blocks, kFkThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const SysTable*>(table), qpos, qvel, out, E);

@@ -42,10 +42,11 @@
 //   up its columns' sources once.
 #include <cuda_runtime.h>
 
+#include "launch_once.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;
-constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kReservedPerBlock = 1024;  // shared memory the system keeps per block
 constexpr int kHeaderInts = 5;  // per group and contact: list, pos, 3 columns
 
@@ -331,17 +332,15 @@ int launch(const float* A, const float* b, const float* vstar,
            const float* actmu, const float* lam0, float* lam_out, int E,
            int nc, int iters, cudaStream_t stream) {
   constexpr int kGroups = kThreads / G;
-  int dev = 0, sms = 0, smem_sm = 0, smem_block = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static bool opted[cadm::kMaxDevices];  // this instantiation's opt-in
+  cadm::DeviceAttrs attrs{};
+  cudaError_t e = cadm::device_attrs(&attrs);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_sm,
-                               cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_block,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    e = cadm::opt_in_smem(reinterpret_cast<const void*>(&pgs_kernel<G>),
+                          opted);
   if (e != cudaSuccess) return (int)e;
+  const int sms = attrs.sms, smem_sm = attrs.smem_sm,
+            smem_block = attrs.smem_block;
 
   const int blocks = (E + kGroups - 1) / kGroups;
   const int header = kHeaderInts * kGroups * nc * (int)sizeof(int);
@@ -359,12 +358,6 @@ int launch(const float* A, const float* b, const float* vstar,
     if (pool < worst) return (int)cudaErrorInvalidValue;  // nc too large
   }
   const size_t smem = (size_t)header + (size_t)pool * sizeof(float);
-  if (smem + sizeof(int) > kDefaultSmem) {
-    e = cudaFuncSetAttribute(pgs_kernel<G>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   pgs_kernel<G><<<blocks, kThreads, smem, stream>>>(
       A, b, vstar, actmu, lam0, lam_out, E, nc, iters, pool);
   return (int)cudaGetLastError();

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cadm_tpu_torch.core.types import PyTree, leading_dim
+from cadm_tpu_torch.core.types import PyTree, constant, leading_dim
 from cadm_tpu_torch.envs.base import uniform
 from cadm_tpu_torch.envs.rigid_base import (
     RigidEnv,
@@ -50,8 +50,7 @@ class AntEnv(RigidEnv):
 
     def init_phys(self, gen: torch.Generator, params: PyTree) -> RigidPhys:
         n = leading_dim(params)
-        qpos0 = torch.as_tensor(ANT_INIT_QPOS, dtype=torch.float32,
-                                device=self.device)
+        qpos0 = constant(ANT_INIT_QPOS, self.device)
         qpos = qpos0 + uniform(gen, (n, self.sys.nq), -0.1, 0.1)
         qvel = 0.1 * randn(gen, n, self.sys.nv)
         return RigidPhys(qpos=normalize_root_quat(qpos), qvel=qvel)
@@ -81,7 +80,7 @@ class CrippleAntEnv(AntEnv):
             leg = randint(gen, 3, n)
         else:           # the held-out leg
             leg = torch.full((n,), 3, dtype=torch.long, device=self.device)
-        legs = torch.as_tensor(LEG_ACTUATORS, device=self.device)[leg]
+        legs = constant(LEG_ACTUATORS, self.device, torch.long)[leg]
         mask = torch.ones(n, self.sys.nu, device=self.device)
         return CrippleParams(act_mask=mask.scatter(1, legs, 0.0))
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from cadm_tpu_torch.core.types import PyTree
+from cadm_tpu_torch.core.types import PyTree, constant
 from cadm_tpu_torch.envs.rigid_base import RigidEnv, RigidPhys
 from cadm_tpu_torch.core.rng import rand, randn
 
@@ -28,8 +28,7 @@ class HalfCheetahEnv(RigidEnv):
     def init_phys(self, gen: torch.Generator, params: PyTree) -> RigidPhys:
         n = params.mass_scale.shape[0]
         nq, nv = self.sys.nq, self.sys.nv
-        qpos0 = torch.as_tensor(self.sys.default_qpos(), dtype=torch.float32,
-                                device=self.device)
+        qpos0 = constant(self.sys.default_qpos(), self.device)
         noise = rand(gen, n, nq)
         qvel = 0.1 * randn(gen, n, nv)
         return RigidPhys(qpos=qpos0 + (0.2 * noise - 0.1), qvel=qvel)

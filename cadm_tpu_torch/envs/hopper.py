@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from cadm_tpu_torch.core.types import PyTree
+from cadm_tpu_torch.core.types import PyTree, constant
 from cadm_tpu_torch.envs.base import uniform
 from cadm_tpu_torch.envs.rigid_base import RigidEnv, RigidPhys
 
@@ -30,8 +30,7 @@ class HopperEnv(RigidEnv):
 
     def init_phys(self, gen: torch.Generator, params: PyTree) -> RigidPhys:
         n = params.mass_scale.shape[0]
-        qpos0 = torch.as_tensor(self.sys.default_qpos(), dtype=torch.float32,
-                                device=self.device)
+        qpos0 = constant(self.sys.default_qpos(), self.device)
         qpos = qpos0 + uniform(gen, (n, self.sys.nq), -5e-3, 5e-3)
         qvel = uniform(gen, (n, self.sys.nv), -5e-3, 5e-3)
         return RigidPhys(qpos=qpos, qvel=qvel)

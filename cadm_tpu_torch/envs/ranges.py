@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from cadm_tpu_torch.core.rng import rand, randint
+from cadm_tpu_torch.core.types import constant
 
 Tensor = torch.Tensor
 
@@ -29,8 +30,8 @@ class ScaleSet:
     extreme: Tuple[float, ...]
 
     def sample(self, gen: torch.Generator, mode: int, n: int) -> Tensor:
-        vals = torch.tensor((self.train, self.moderate, self.extreme)[mode],
-                            device=gen.device)
+        vals = constant((self.train, self.moderate, self.extreme)[mode],
+                        gen.device)
         idx = randint(gen, len(vals), n)
         return vals[idx]
 

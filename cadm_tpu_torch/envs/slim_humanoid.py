@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from cadm_tpu_torch.core.types import PyTree
+from cadm_tpu_torch.core.types import PyTree, constant
 from cadm_tpu_torch.envs.base import uniform
 from cadm_tpu_torch.envs.rigid_base import (
     RigidEnv,
@@ -35,8 +35,7 @@ class SlimHumanoidEnv(RigidEnv):
 
     def init_phys(self, gen: torch.Generator, params: PyTree) -> RigidPhys:
         n = params.mass_scale.shape[0]
-        qpos0 = torch.as_tensor(self.sys.default_qpos(), dtype=torch.float32,
-                                device=self.device)
+        qpos0 = constant(self.sys.default_qpos(), self.device)
         qpos = qpos0 + uniform(gen, (n, self.sys.nq), -0.01, 0.01)
         qvel = uniform(gen, (n, self.sys.nv), -0.01, 0.01)
         return RigidPhys(qpos=normalize_root_quat(qpos), qvel=qvel)

@@ -8,7 +8,10 @@ the sources, so an edited kernel is rebuilt and a stale one never loads.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()`` after its launch; ``check`` turns a
-non-zero code into an exception.
+non-zero code into an exception. The launchers read the device's attributes
+and opt in to its shared memory once, at a kernel's first launch
+(``csrc/launch_once.cuh``), so a launch under stream capture makes no other
+CUDA call.
 """
 from __future__ import annotations
 
@@ -108,6 +111,33 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().cadm_error_string(code).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({code})")
+
+
+# Launches recorded into a CUDA graph, by kernel. A wrapper called while its
+# stream is capturing launches nothing yet: it leaves its count alone and
+# adds here instead, and every replay of the graph adds what its capture
+# recorded to the wrappers' counts (``add_replayed``, train/step_graph.py).
+captured = {"pgs": 0, "full_dyn": 0, "fk_vel": 0}
+
+
+def eager_launch(kernel: str) -> int:
+    """What a wrapper adds to its launch count: 1 where its launch runs now,
+    0 where the current stream is capturing (``captured[kernel]`` takes
+    it)."""
+    if torch.cuda.is_current_stream_capturing():
+        captured[kernel] += 1
+        return 0
+    return 1
+
+
+def add_replayed(counts: dict) -> None:
+    """Add one replay's launches (``captured`` deltas of its capture) to the
+    wrappers' counts."""
+    from cadm_tpu_torch.ops import fk_kernel, pgs
+
+    pgs.launches += counts["pgs"]
+    fk_kernel.launches += counts["full_dyn"]
+    fk_kernel.fk_vel_launches += counts["fk_vel"]
 
 
 def stream_handle(t: torch.Tensor) -> int:

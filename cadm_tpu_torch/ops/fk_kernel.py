@@ -52,8 +52,9 @@ Tensor = torch.Tensor
 FULL_DYN_MAX_NV = 24
 NB_MAX, NJ_MAX, NV_MAX, NU_MAX = 16, 24, 24, 24
 
-# Launches of the CUDA kernels in this process, K2 and K3 (read and reset by
-# chip_smoke.py to show that the main path went through the kernel).
+# Launches of the CUDA kernels in this process, K2 and K3, replays of CUDA
+# graphs that hold them included (read and reset by chip_smoke.py to show
+# that the main path went through the kernel).
 launches = 0
 fk_vel_launches = 0
 
@@ -291,7 +292,7 @@ def launch_fk_vel(sys: System, qpos: Tensor, qvel: Tensor) -> Tensor:
         _build.stream_handle(qpos),
     )
     _build.check(code, "fk_vel")
-    fk_vel_launches += 1
+    fk_vel_launches += _build.eager_launch("fk_vel")
     return out
 
 
@@ -356,7 +357,7 @@ def launch(
         sys.nv, _build.stream_handle(qpos),
     )
     _build.check(code, "full_dyn")
-    launches += 1
+    launches += _build.eager_launch("full_dyn")
     return out
 
 

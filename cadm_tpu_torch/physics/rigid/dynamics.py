@@ -259,7 +259,7 @@ def contact_solve(
     contact_pt = p_world.clone()
     contact_pt[..., 2] -= t.c_rad
 
-    Jp = point_jacobians(sys, fk, contact_pt, _contact_points(sys)[0])
+    Jp = point_jacobians(sys, fk, contact_pt, t.c_body)
     # rows: x/y tangent, z normal — plane frame is world-aligned
     Jc = Jp.reshape(e, 3 * nc, sys.nv)
 

@@ -214,15 +214,16 @@ def _dof_is_rot(sys: System) -> np.ndarray:
 
 
 def point_jacobians(
-    sys: System, fk: FK, points: Tensor, point_body: np.ndarray
+    sys: System, fk: FK, points: Tensor, point_body: Tensor
 ) -> Tensor:
     """Translational Jacobians of world points attached to bodies.
 
-    points: (E, n, 3) world positions; point_body: (n,) static body indices.
+    points: (E, n, 3) world positions; point_body: (n,) static body indices,
+    a long tensor on the points' device.
     Returns (E, n, 3, nv). Columns: rot dof → a × (p − o); trans dof → a.
     """
     c = sys_tensors(sys, points)
-    mask = c.ancestry[torch.as_tensor(point_body, device=points.device)]
+    mask = c.ancestry[point_body]
     is_rot = c.is_rot[:, None]
     a = fk.dof_axis[:, None]                          # (E, 1, nv, 3)
     rel = points[:, :, None, :] - fk.dof_anchor[:, None]  # (E, n, nv, 3)

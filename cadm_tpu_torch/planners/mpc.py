@@ -20,10 +20,11 @@ says, its members run as one batched product over the member axis:
 - 'mean': every candidate under every member, scored by the member-mean
   return (n_members × the rows);
 - 'ts1_exact': every candidate draws an i.i.d. member each step, taken from
-  all members' predictions (n_members × the rows).
-
-The reference's 'assign' mode (one member per candidate for the whole
-horizon, its known winner's curse) is not ported.
+  all members' predictions (n_members × the rows);
+- 'assign' (TS∞-block): TS1's block layout with the identity block→member
+  map, so block m runs under member m for the whole horizon (candidate i
+  under member i // cm) and nothing is drawn; the reference keeps it for
+  its known winner's curse (the elites exploit the most optimistic member).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from cadm_tpu_torch.core.rng import rand, randint, randn, trunc_normal
 
 Tensor = torch.Tensor
 RewardFn = Callable[[Tensor, Tensor, Tensor], Tensor]
-ENSEMBLE_EVALS = ("ts1", "mean", "ts1_exact")
+ENSEMBLE_EVALS = ("ts1", "mean", "ts1_exact", "assign")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +53,7 @@ class PlannerConfig:
     cem_alpha: float = 0.1     # momentum on (mu, sigma) across CEM iterations
     init_sigma: float = 0.5
     warm_start: bool = False   # receding-horizon: shift last plan's mean
-    ensemble_eval: str = "ts1"  # 'ts1' | 'mean' | 'ts1_exact' (see above)
+    ensemble_eval: str = "ts1"  # one of ENSEMBLE_EVALS (see above)
     # sample from the probabilistic heads during rollouts (stochastic PETS
     # trajectory sampling); False propagates each member's Gaussian mean
     sample_predictions: bool = False
@@ -73,10 +74,6 @@ class MPCPlanner:
         bad_transition_fn: Optional[Callable[[Tensor, Tensor], Tensor]] = None,
         obs_limit: float = float("inf"),
     ):
-        if config.ensemble_eval == "assign":
-            raise NotImplementedError(
-                "ensemble_eval='assign' is not ported (ported: "
-                f"{ENSEMBLE_EVALS})")
         if config.ensemble_eval not in ENSEMBLE_EVALS:
             raise ValueError(
                 f"unknown ensemble_eval {config.ensemble_eval!r}")
@@ -119,7 +116,7 @@ class MPCPlanner:
         uniform permutation per env and step (argsort of uniforms, batched);
         'ts1_exact' i.i.d. members (E, H, C); None otherwise."""
         n, h = self.model.cfg.n_members, self.cfg.horizon
-        if n == 1 or self.cfg.ensemble_eval == "mean":
+        if n == 1 or self.cfg.ensemble_eval in ("mean", "assign"):
             return None
         if self.cfg.ensemble_eval == "ts1":
             return rand(gen, e, h, n).argsort(-1)
@@ -137,7 +134,7 @@ class MPCPlanner:
         """
         e, c, h, _ = actions.shape
         n, mode = self.model.cfg.n_members, self.cfg.ensemble_eval
-        if members is None and n > 1 and mode != "mean":
+        if members is None and n > 1:
             members = self.member_draws(gen, e, c)
         fwd = params["fwd"] if n > 1 else member(params["fwd"], 0)
 
@@ -164,9 +161,10 @@ class MPCPlanner:
             return self._rollout(obs, step, h).reshape(-1, e, c).mean(0)
 
         rows = torch.arange(e, device=obs0.device)[:, None]
-        if mode == "ts1":
+        if mode in ("ts1", "assign"):
             # candidate blocks (E, n, cm): block order stays fixed, the
-            # block→member map moves every step
+            # block→member map moves every step under 'ts1' and is the
+            # identity under 'assign'
             cm = -(-c // n)
             acts = actions[:, torch.arange(cm * n, device=actions.device) % c]
             acts = acts.reshape(e, n, cm, h, -1)
@@ -174,9 +172,13 @@ class MPCPlanner:
             zz = z[None, :, None].expand(n, e, cm, z.shape[-1])
 
             def step(t, obs):
+                a_t = acts[:, :, :, t]
+                if mode == "assign":
+                    pred = predict(t, obs.transpose(0, 1),
+                                   a_t.transpose(0, 1), zz)
+                    return a_t, pred.transpose(0, 1)
                 perm = members[:, t]                        # block b → member
                 inv = perm.argsort(-1)                      # member m → block
-                a_t = acts[:, :, :, t]
                 pred = predict(t, obs[rows, inv].transpose(0, 1),
                                a_t[rows, inv].transpose(0, 1), zz)
                 return a_t, pred.transpose(0, 1)[rows, perm]

@@ -7,11 +7,13 @@ MPC through the model after) into the replay ring, fit the dynamics model
 early stop on a held-out valid loss), evaluate on the train/moderate/extreme
 dynamics ranges, and log one row.
 
-The reference compiles collect and fit into two programs (``lax.scan`` over
-time / updates, ``lax.cond`` over skipped epochs); here they are Python loops
-over batched device work, and the epoch loop stops at the early-stop epoch
-instead of running the skipped ones. The metrics and their keys are the
-reference's.
+The reference compiles collect, eval and fit into programs (``lax.scan``
+over time / updates, ``lax.cond`` over skipped epochs). Here they are Python
+loops over batched device work: on a CUDA device each control step of the
+planned collect and of the eval episodes is a replay of a captured CUDA
+graph (``train/step_graph.py``; ``graph=False`` runs it op by op), and the
+epoch loop stops at the early-stop epoch instead of running the skipped
+ones. The metrics and their keys are the reference's.
 
 ``train`` can save the whole training state after every iteration
 (``checkpoint_payload``) and resume from it at the next iteration with the
@@ -36,7 +38,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from cadm_tpu_torch.core.types import batched_history, tree_map, tree_where
+from cadm_tpu_torch.core.types import batched_history
 from cadm_tpu_torch.envs.base import Env
 from cadm_tpu_torch.models.dynamics import (
     Dynamics,
@@ -44,7 +46,7 @@ from cadm_tpu_torch.models.dynamics import (
     NormStats,
     SegmentBatch,
 )
-from cadm_tpu_torch.core.rng import env_rows, rand
+from cadm_tpu_torch.core.rng import env_rows
 from cadm_tpu_torch.parallel.mesh import (
     gather_dynamics_state,
     gather_leading_axis,
@@ -52,6 +54,7 @@ from cadm_tpu_torch.parallel.mesh import (
 )
 from cadm_tpu_torch.planners.mpc import MPCPlanner
 from cadm_tpu_torch.train.buffer import ReplayBuffer
+from cadm_tpu_torch.train.step_graph import STEPS, StepGraphs
 from cadm_tpu_torch.utils.checkpoint import restore_parts, to_plain
 
 Tensor = torch.Tensor
@@ -136,10 +139,15 @@ def early_stop_step(best: float, since: int, val: float,
 
 class MBTrainer:
     def __init__(self, env: Env, model: Dynamics, planner: MPCPlanner,
-                 config: TrainerConfig, mesh=None):
+                 config: TrainerConfig, mesh=None, graph: bool = True):
         """``mesh``: a ``parallel.mesh.Mesh`` whose dp axis splits the
         ``n_envs`` envs and whose model axis splits the members (raises
-        ``ValueError`` where either does not divide), or None."""
+        ``ValueError`` where either does not divide), or None.
+
+        ``graph``: on a CUDA device, run each control step of the planned
+        collect and of the eval episodes as a replay of a captured CUDA
+        graph (``train/step_graph.py``); False runs them op by op. The CPU
+        always runs them op by op."""
         if config.fit_protocol not in ("fixed", "epochs"):
             raise ValueError(f"unknown fit_protocol {config.fit_protocol!r}")
         if config.early_stop_metric not in ("loss", "fwd_mse"):
@@ -157,6 +165,8 @@ class MBTrainer:
                              "ensemble members")
         self._fit = {"fixed": self._fit_impl,
                      "epochs": self._fit_epochs_impl}[config.fit_protocol]
+        self.graphs = (StepGraphs(self) if graph and env.device.type == "cuda"
+                       else None)
         self._sym_maps = None
         if config.symmetry_aug:
             maps = env.symmetry_maps()
@@ -187,6 +197,30 @@ class MBTrainer:
         return gather_dynamics_state(dyn_state, self.mesh,
                                      self.model.member_keys)
 
+    # ------------------------------------------------------------ steps --
+    def _stepper(self, kind: str, mode: int, dyn_state, carry, g,
+                 noise: Optional[Tensor] = None):
+        """(``step(t)``, ``final()``): ``step`` runs control step t of
+        ``kind`` (``step_graph.STEPS``) from ``carry`` and returns its
+        output (valid until the next step), ``final`` gives the carry
+        after the steps taken. The planned collect and the eval replay the
+        trainer's graphs where it has them; the random collect, and a run
+        with ``noise`` (step t's actions or ε), go op by op."""
+        if self.graphs is not None and kind != "random":
+            if noise is not None:
+                raise ValueError("noise is taken by the op-by-op step only "
+                                 "(MBTrainer(graph=False))")
+            graph = self.graphs.load(kind, mode, dyn_state, carry, g)
+            return (lambda t: graph()), graph.carry_out
+        box = [carry]
+
+        def step(t):
+            box[0], out = STEPS[kind](self, dyn_state, box[0], g, mode,
+                                      None if noise is None else noise[t])
+            return out
+
+        return step, lambda: box[0]
+
     # ---------------------------------------------------------- collect --
     @torch.no_grad()
     def _collect(self, gen: torch.Generator, env_states, hists, buffer,
@@ -203,37 +237,24 @@ class MBTrainer:
         act) for a planned one. ``dyn_state`` has every member
         (``planning_state``); the envs are this rank's.
         """
-        env, model, cfg = self.env, self.model, self.cfg
+        env, cfg = self.env, self.cfg
         g, n = env_rows(self.mesh, gen, cfg.n_envs)
         plan_mu = self.planner.init_plan(n, env.device)
+        step, final = self._stepper(
+            "random" if random_actions else "collect", 0, dyn_state,
+            (env_states, hists, plan_mu), g, noise)
         ret_acc = torch.zeros(n, device=env.device)
         ep_returns, rewards, bads = [], [], []
         for t in range(cfg.steps_per_itr):
-            if random_actions:
-                actions = noise[t] if noise is not None else \
-                    2.0 * rand(g, n, env.act_dim) - 1.0
-            else:
-                z = model.context_from_history(dyn_state.params,
-                                               dyn_state.norm, hists)
-                actions, plan_mu = self.planner.plan(
-                    dyn_state, env_states.obs, z, g, plan_mu,
-                    noise=None if noise is None else noise[t])
-            prev_obs, ep_step = env_states.obs, env_states.t
-            env_states, obs, reward, done = env.step(env_states, actions, g)
-            bad = env.bad_transition(prev_obs, obs)
-            buffer.append(prev_obs, actions, obs, done, ep_step, bad)
-            pushed = model.push_history(dyn_state.params, dyn_state.norm,
-                                        hists, prev_obs, obs - prev_obs,
-                                        actions)
-            # auto-reset: a new episode with new params starts from scratch
-            plan_mu = torch.where(done[:, None, None], 0.0, plan_mu)
-            hists = tree_where(done, tree_map(torch.zeros_like, pushed),
-                               pushed)
-            ret_acc = ret_acc + reward
-            ep_returns.append(torch.where(done, ret_acc, math.nan))
-            ret_acc = torch.where(done, 0.0, ret_acc)
-            rewards.append(reward)
-            bads.append(bad.float())
+            tr = step(t)
+            buffer.append(tr.prev_obs, tr.actions, tr.obs, tr.done,
+                          tr.ep_step, tr.bad)
+            ret_acc = ret_acc + tr.reward
+            ep_returns.append(torch.where(tr.done, ret_acc, math.nan))
+            ret_acc = torch.where(tr.done, 0.0, ret_acc)
+            rewards.append(tr.reward.clone())  # the next step overwrites it
+            bads.append(tr.bad.float())
+        env_states, hists, _ = final()
         # (steps, envs) of every env, so the row is the one without a mesh
         ep_returns, rewards, bads = gather_leading_axis(
             [torch.stack(x) for x in (ep_returns, rewards, bads)], self.mesh,
@@ -421,23 +442,16 @@ class MBTrainer:
         they divide it (else every rank runs all of them) and every rank
         gets all the returns.
         """
-        env, model = self.env, self.model
+        env = self.env
         g, n = env_rows(self.mesh, gen, self.cfg.eval_envs)
-        states = env.reset(g, n, mode)
-        hists = batched_history(model.cfg, n, env.device)
+        carry = (env.reset(g, n, mode),
+                 batched_history(self.model.cfg, n, env.device),
+                 self.planner.init_plan(n, env.device))
+        step, _ = self._stepper("eval", mode, dyn_state, carry, g)
         ret = torch.zeros(n, device=env.device)
         alive = torch.ones(n, device=env.device)
-        plan_mu = self.planner.init_plan(n, env.device)
-        for _ in range(env.horizon):
-            z = model.context_from_history(dyn_state.params, dyn_state.norm,
-                                           hists)
-            actions, plan_mu = self.planner.plan(dyn_state, states.obs, z,
-                                                 g, plan_mu)
-            prev_obs = states.obs
-            states, obs, reward, done = env.step(states, actions, g, mode)
-            hists = model.push_history(dyn_state.params, dyn_state.norm,
-                                       hists, prev_obs, obs - prev_obs,
-                                       actions)
+        for t in range(env.horizon):
+            reward, done = step(t)
             ret = ret + reward * alive
             alive = alive * (1.0 - done.float())
         return ret if n == self.cfg.eval_envs else gather_leading_axis(

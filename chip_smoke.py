@@ -68,9 +68,10 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    ``read_trajfile`` gives back itr0/obs|act|next_obs equal to the ring's
    columns, 0 records dropped;
 10. the acting path at full width (``trainer.evaluate``) for
-   ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2: cheetah at
-   2048 envs, slim_humanoid and hopper at 512, with both kernels' launch
-   counts checked against steps × frame_skip;
+   ``SLICE_HORIZON`` control steps in each of the modes 0, 1, 2, twice (the
+   step graph's capture, then its replays, timed apart): cheetah at 2048
+   envs, slim_humanoid and hopper at 512, with both kernels' launch counts
+   checked against steps × frame_skip;
 11. the mesh (``cadm_tpu_torch/parallel``), ranks under
    ``torch.multiprocessing`` (spawn) through ``cli.run.main(argv, mesh)``:
    (a) the toy cheetah of phases 5/6 with 2 members, 3 iterations, on a
@@ -130,12 +131,30 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    ``graft_entry.entry("cuda")``'s forward step (B=256) against the same
    step on the CPU, within 1e-5.
 
-Each path of phases 7–14 sets the launch counts to 0 before it runs and
-reads them after (in its rank's process on a mesh).
+15. the control step as a captured CUDA graph (``train/step_graph.py``)
+   against the same trainer op by op (``MBTrainer(graph=False)``), from the
+   same weights and generator state, at the matrix's cheetah configuration
+   (256 envs, CEM 256 × 30 × 5 warm-started, heads 4×200, eval 32 envs):
+   (a) a planned collect of 20 steps through auto-resets: env states, ring,
+   histories, plan_mu, the collect metrics and the generator's state; (b)
+   50 eval steps in each of modes 0, 1, 2: returns and generator state; (c)
+   a fit between two collects, the graph captured before it replaying the
+   new weights; (d) ms per step both ways, device ops per step and the
+   device's idle share; (e) a toy cripple_ant ensemble ('assign', 'ts1')
+   and the cheetah's stacked, ReBAL and GrBAL. Each bit for bit, or a float
+   within GRAPH_RTOL relative (printed). With ``--only graph`` also (f): a
+   1000-step eval episode at 32 envs both ways, timed in 100-step buckets.
 
-``python3 chip_smoke.py --only mesh`` (``--only matrix``, ``--only bench``)
-runs phase 1 and phase 11 (12, 14) alone, ``--only probes`` phases 1, 12
-and 13, and prints each path's launches (no JSON lines).
+The MB trainer's planned collect and eval steps are graph replays on every
+path; the steps a graph runs as warm-up before its capture launch K1/K2 too,
+so every gate expects frame_skip × (control steps + warm-up steps). Each path of phases 7–15 sets the launch counts (and the
+warm-up count) to 0 before it runs and reads them after (in its rank's
+process on a mesh).
+
+``python3 chip_smoke.py --only mesh`` (``--only matrix``, ``--only bench``,
+``--only graph``) runs phase 1 and phase 11 (12, 14, 15) alone, ``--only
+probes`` phases 1, 12 and 13, and prints each path's launches (no JSON
+lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -941,11 +960,18 @@ def evaluating_itrs(cfg) -> list:
 
 @contextlib.contextmanager
 def counted(pgs, fk_kernel, out):
-    """Set the kernels' launch counts to 0, run the block, and put
-    (pgs, full_dyn, fk_vel) launches into ``out``."""
+    """Set the kernels' launch counts and the step graphs' warm-up steps to
+    0, run the block, and put (pgs, full_dyn, fk_vel) launches and the
+    warm-up steps into ``out``. A replay of a step graph adds the launches
+    its capture recorded; the warm-up steps before each capture launch the
+    kernels for real (``train/step_graph.py``)."""
+    from cadm_tpu_torch.train import step_graph
+
     pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
+    step_graph.warmup_steps = 0
     yield
-    out[:] = [pgs.launches, fk_kernel.launches, fk_kernel.fk_vel_launches]
+    out[:] = [pgs.launches, fk_kernel.launches, fk_kernel.fk_vel_launches,
+              step_graph.warmup_steps]
 
 
 def control_steps(log) -> int:
@@ -956,10 +982,14 @@ def control_steps(log) -> int:
 
 
 def check_launches(tag, launched, frame_skip, control_steps):
-    expected = frame_skip * control_steps
+    """K1 and K2 launched frame_skip × the control steps, the step graphs'
+    warm-up steps (``launched[3]``, from ``counted``) included."""
+    warm = launched[3] if len(launched) > 3 else 0
+    expected = frame_skip * (control_steps + warm)
     print(f"{tag} launches: pgs={launched[0]} full_dyn={launched[1]} "
           f"fk_vel={launched[2]} (expected {expected} = {frame_skip} × "
-          f"{control_steps} control steps for pgs and full_dyn)")
+          f"({control_steps} control steps + {warm} graph warm-up steps) "
+          f"for pgs and full_dyn)")
     if tuple(launched[:2]) != (expected, expected):
         raise AssertionError(f"{tag} launches {launched[:2]} != {expected}")
 
@@ -1294,38 +1324,47 @@ def run_dump(pgs, fk_kernel):
 def run_full_slice(PRESETS, pgs, fk_kernel, preset="halfcheetah_cadm_cem",
                    n_envs=E):
     """``trainer.evaluate`` at ``n_envs`` for SLICE_HORIZON control steps in
-    each eval mode; returns the ms per control step of each mode and the
-    launches of K1 and K2."""
+    each eval mode, twice: the first call warms up and captures the mode's
+    step graph, the second replays it. Returns the ms per control step of
+    each mode's replays and the launches of K1 and K2."""
+    from cadm_tpu_torch.train import step_graph
+
     cfg = dataclasses.replace(PRESETS[preset], eval_envs=n_envs,
                               env_horizon=SLICE_HORIZON)
     env, model, _, trainer = cfg.build("cuda")
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     dyn_state = model.init_state(gen)
     torch.cuda.synchronize()
-    per_mode = env.horizon * env.frame_skip
     pgs.launches = fk_kernel.launches = fk_kernel.fk_vel_launches = 0
     step_ms = []
     for mode in cfg.eval_modes:
-        before = (pgs.launches, fk_kernel.launches)
-        t0 = time.perf_counter()
-        returns = trainer.evaluate(dyn_state, mode, gen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launched = (pgs.launches - before[0], fk_kernel.launches - before[1])
-        ms = 1e3 * dt / env.horizon
-        step_ms.append(ms)
-        print(f"slice {preset} mode {mode}: {n_envs} envs x {env.horizon} "
-              f"control steps, {ms:.1f} ms/control step, return mean "
-              f"{returns.mean().item():.3f} std {returns.std().item():.3f}, "
-              f"launches pgs={launched[0]} full_dyn={launched[1]} "
-              f"(expected {per_mode} each = {env.frame_skip} × "
-              f"{env.horizon})")
-        if returns.shape != (n_envs,) or not torch.isfinite(returns).all():
-            raise AssertionError(f"{preset} mode {mode}: returns not "
-                                 f"finite/shape {tuple(returns.shape)}")
-        if launched != (per_mode, per_mode):
-            raise AssertionError(f"{preset} mode {mode}: launches {launched} "
-                                 f"!= {per_mode} per kernel")
+        ms = []
+        for call in ("capture", "replays"):
+            before = (pgs.launches, fk_kernel.launches,
+                      step_graph.warmup_steps)
+            t0 = time.perf_counter()
+            returns = trainer.evaluate(dyn_state, mode, gen)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0) / env.horizon)
+            launched = (pgs.launches - before[0],
+                        fk_kernel.launches - before[1])
+            warm = step_graph.warmup_steps - before[2]
+            per_mode = (env.horizon + warm) * env.frame_skip
+            print(f"slice {preset} mode {mode} ({call}): {n_envs} envs x "
+                  f"{env.horizon} control steps, {ms[-1]:.1f} ms/control "
+                  f"step, return mean {returns.mean().item():.3f} std "
+                  f"{returns.std().item():.3f}, launches pgs={launched[0]} "
+                  f"full_dyn={launched[1]} (expected {per_mode} each = "
+                  f"{env.frame_skip} × ({env.horizon} + {warm} graph warm-up "
+                  f"steps))")
+            if returns.shape != (n_envs,) or not torch.isfinite(
+                    returns).all():
+                raise AssertionError(f"{preset} mode {mode}: returns not "
+                                     f"finite/shape {tuple(returns.shape)}")
+            if launched != (per_mode, per_mode):
+                raise AssertionError(f"{preset} mode {mode}: launches "
+                                     f"{launched} != {per_mode} per kernel")
+        step_ms.append(ms[-1])
     return step_ms, (pgs.launches, fk_kernel.launches,
                      fk_kernel.fk_vel_launches)
 
@@ -1697,11 +1736,12 @@ def run_matrix(pgs, fk_kernel):
                 + n_evals * 3 * 1000 * eval_step)
     print(f"matrix {name}: planned collect {1e3 * planned:.1f} ms per step "
           f"at {full['n_envs']} envs, eval {1e3 * eval_step:.1f} ms per step "
-          f"at {full['eval_envs']} envs; the full cell's planned and eval "
+          f"at {full['eval_envs']} envs (each call here holds its step "
+          f"graph's warm-up and capture); the full cell's planned and eval "
           f"steps alone at these rates: {estimate:.0f} s")
     print(f"matrix second main (cell done): launches {again}; renderer: "
           f"{rows}")
-    if again != [0, 0, 0] or len(rows) != 1 or "| 1 |" not in rows[0]:
+    if any(again) or len(rows) != 1 or "| 1 |" not in rows[0]:
         raise AssertionError(f"matrix: the done cell ran again ({again}) or "
                              f"the renderer's row is {rows}")
     check_launches(f"matrix {name}", launched, log[0][2][0].env.frame_skip,
@@ -1993,7 +2033,7 @@ def run_bench(pgs, fk_kernel, rdyn):
             raise AssertionError(f"bench {tag}: fk_vel launched")
     for tag in ("cem", "train"):
         print(f"bench {tag} launches: {paths[f'bench {tag}']}")
-        if paths[f"bench {tag}"] != [0, 0, 0]:
+        if any(paths[f"bench {tag}"]):
             raise AssertionError(f"bench {tag} launched a physics kernel")
     # the rigid lines' own shapes: outside any count, so these launches
     # add to no path
@@ -2040,6 +2080,364 @@ def run_bench(pgs, fk_kernel, rdyn):
     return paths, k1_checks, k2_checks
 
 
+# ------------------------------------------ phase 15: the graphed step --
+# The matrix's cheetah CaDM (256 envs, CEM 256 × 30 × 5 warm-started, heads
+# 4×200, eval 32 envs) with the control step captured as a CUDA graph
+# against the same trainer stepping op by op (MBTrainer(graph=False)), from
+# the same weights and generator state. A replay runs the kernels of the
+# op-by-op step in the same order on the same inputs, so the two agree bit
+# for bit; where an output does not (cuBLAS may choose another algorithm
+# under stream capture), it is held within GRAPH_RTOL of the op-by-op one,
+# relative to that output's largest magnitude, and a line says so.
+GRAPH_RTOL = 1e-6
+GRAPH_COLLECT_STEPS, GRAPH_EPISODE = 20, 10   # collect: 2 auto-resets each
+GRAPH_EVAL_STEPS = 50                         # eval episodes cut to 50 steps
+GRAPH_PROFILE_STEPS = 5
+LONG_EVAL_BUCKET = 100   # (f): a 1000-step episode timed in these buckets
+# (e): the toy width of phases 5/6 with the ensemble and the baselines
+GRAPH_TOY = dict(TOY, steps_per_itr=6, env_horizon=4, buffer_capacity=32,
+                 warm_start=True)
+
+
+def graph_pair(argv, **fields):
+    """(config, graphed trainer, op-by-op trainer) of ``argv``'s config
+    with ``fields`` replaced, on the card, sharing env, model and
+    planner."""
+    from cadm_tpu_torch.cli import run
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+
+    cfg = run.config_from_args(run.build_parser().parse_args(argv))
+    cfg = dataclasses.replace(cfg, **fields)
+    env, model, planner, graphed = cfg.build("cuda")
+    eager = MBTrainer(env, model, planner, graphed.cfg, graph=False)
+    if graphed.graphs is None or eager.graphs is not None:
+        raise AssertionError(f"graph_pair {cfg.model}: the trainer built on "
+                             f"the card has no step graphs")
+    return cfg, graphed, eager
+
+
+@contextlib.contextmanager
+def final_carry(trainer, keep):
+    """Keep the carry function of ``trainer``'s latest ``_stepper`` in
+    ``keep[0]``: the env states, histories and CEM plan after the steps
+    taken."""
+    saved = trainer._stepper
+
+    def inner(*args, **kwargs):
+        step, final = saved(*args, **kwargs)
+        keep[:] = [final]
+        return step, final
+
+    trainer._stepper = inner
+    try:
+        yield
+    finally:
+        del trainer._stepper
+
+
+def graph_compare(tag, named) -> None:
+    """Hold each (name, graphed, op-by-op) pair of trees: bit for bit, or a
+    float leaf within GRAPH_RTOL relative (printed); raise otherwise."""
+    from cadm_tpu_torch.core.types import tree_map
+
+    n = exact = 0
+    worst = []
+    for name, a, b in named:
+        pairs = []
+        tree_map(lambda x, y: pairs.append((x, y)) or x, a, b)
+        for x, y in pairs:
+            n += 1
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise AssertionError(f"{tag} {name}: {tuple(x.shape)} "
+                                     f"{x.dtype} vs {tuple(y.shape)} {y.dtype}")
+            if torch.equal(x, y) or (x.is_floating_point() and torch.equal(
+                    x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
+                                                          y.nan_to_num())):
+                exact += 1
+                continue
+            if not x.is_floating_point():
+                raise AssertionError(f"{tag} {name}: {x.dtype} values differ")
+            d = (x.double() - y.double()).nan_to_num(nan=math.inf).abs().max()
+            rel = (d / y.double().nan_to_num().abs().max().clamp(
+                min=1e-30)).item()
+            worst.append((name, rel))
+            if not rel <= GRAPH_RTOL:
+                raise AssertionError(f"{tag} {name}: graphed vs op by op "
+                                     f"{rel:.3e} relative > {GRAPH_RTOL}")
+    line = f"{tag}: graphed = op by op, {exact}/{n} tensors bit for bit"
+    if worst:
+        line += (f"; the rest within {max(r for _, r in worst):.3e} relative "
+                 f"({sorted({k for k, _ in worst})}; limit {GRAPH_RTOL}: "
+                 f"cuBLAS may choose another algorithm under stream capture)")
+    print(line)
+
+
+def step_profile(fn, steps: int):
+    """(host ms per step, device-busy ms per step, idle share, device ops
+    per step) of ``steps`` calls of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ops) / 1e6
+    return (1e3 * wall / steps, 1e3 * busy / steps, 1.0 - busy / wall,
+            sum(e.count for e in ops) / steps)
+
+
+def profile_pair(tag, eager_fn, graph_fn):
+    """Print and return the profile of one op-by-op step and one replay."""
+    out = {}
+    for way, fn in (("op by op", eager_fn), ("graphed", graph_fn)):
+        host, busy, idle, ops = step_profile(fn, GRAPH_PROFILE_STEPS)
+        out[way] = dict(ms=host, busy_ms=busy, idle=idle, ops=ops)
+        print(f"{tag} {way}, profiler on: {host:.1f} ms per step on the host "
+              f"clock, device busy {busy:.1f} ms, idle {100 * idle:.1f} %, "
+              f"{ops:.0f} device ops per step")
+    return out
+
+
+def graph_collect(pgs, fk_kernel, trainer, start, plan, gen):
+    """A planned collect of ``trainer`` from ``start`` (env states,
+    histories, ring; the generator's state) → (its outputs, the carry
+    after, the generator's state after, seconds, launches)."""
+    from cadm_tpu_torch.core.types import tree_map
+
+    gen.set_state(start[1])
+    keep, launched = [], []
+    with final_carry(trainer, keep), counted(pgs, fk_kernel, launched):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer._collect(gen, *tree_map(torch.clone, start[0]), plan,
+                               False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return out, keep[0](), gen.get_state(), dt, launched
+
+
+def graph_eval(pgs, fk_kernel, trainer, plan, mode, start, gen):
+    """``trainer.evaluate`` in ``mode`` from the generator state ``start``
+    → (returns, the generator's state after, seconds, launches)."""
+    gen.set_state(start)
+    launched = []
+    with counted(pgs, fk_kernel, launched):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret = trainer.evaluate(plan, mode, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return ret, gen.get_state(), dt, launched
+
+
+def graph_collect_pair(pgs, fk_kernel, tag, graphed, eager, start, plan,
+                       gen, paths, steps):
+    """The op-by-op and the graphed collect from ``start``, compared; their
+    launches checked and added to ``paths``; → (op-by-op, graphed) runs."""
+    fs = graphed.env.frame_skip
+    e = graph_collect(pgs, fk_kernel, eager, start, plan, gen)
+    g = graph_collect(pgs, fk_kernel, graphed, start, plan, gen)
+    graph_compare(tag, [
+        ("env states", g[0][0], e[0][0]), ("histories", g[0][1], e[0][1]),
+        ("ring", g[0][2], e[0][2]), ("plan_mu", g[1][2], e[1][2]),
+        ("collect metrics", g[0][3], e[0][3]), ("generator state", g[2], e[2])])
+    for way, run in (("op by op", e), ("graphed", g)):
+        check_launches(f"{tag} {way}", run[4], fs, steps)
+        paths[f"{tag} {way}"] = run[4]
+    return e, g
+
+
+def graph_toys(pgs, fk_kernel, PRESETS, paths):
+    """(e): the toy cripple_ant ensemble ('assign' and 'ts1') and the
+    cheetah's baselines (stacked, ReBAL, GrBAL), graphed against op by op:
+    a planned collect through two auto-resets and an eval episode."""
+    from cadm_tpu_torch.cli.matrix import MODEL_VARIANTS
+
+    cases = [("cripple_ant_cadm_ensemble_cem", dict(ensemble_eval=m))
+             for m in ("assign", "ts1")]
+    cases += [("halfcheetah_cadm_cem", MODEL_VARIANTS[b]) for b in BASELINES]
+    for preset, override in cases:
+        fields = {**GRAPH_TOY, **override}
+        cfg, graphed, eager = graph_pair(["--preset", preset], **fields)
+        tag = (f"graph (e) toy {cfg.env} {cfg.model} "
+               f"{cfg.ensemble_eval if cfg.ensemble > 1 else ''}").strip()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        states, hists, buf, dyn = eager.init(gen)
+        states, hists, buf, _ = eager._collect(gen, states, hists, buf, dyn,
+                                               True)
+        plan = eager.planning_state(dyn)
+        start = ((states, hists, buf), gen.get_state())
+        graph_collect_pair(pgs, fk_kernel, f"{tag} collect", graphed, eager,
+                           start, plan, gen, paths, cfg.steps_per_itr)
+        e = graph_eval(pgs, fk_kernel, eager, plan, 1, start[1], gen)
+        g = graph_eval(pgs, fk_kernel, graphed, plan, 1, start[1], gen)
+        graph_compare(f"{tag} eval mode 1", [("returns", g[0], e[0]),
+                                             ("generator state", g[1], e[1])])
+        for way, run in (("op by op", e), ("graphed", g)):
+            check_launches(f"{tag} eval {way}", run[3], graphed.env.frame_skip,
+                           graphed.env.horizon)
+            paths[f"{tag} eval {way}"] = run[3]
+
+
+def long_eval(pgs, fk_kernel, plan, gen):
+    """(f): one 1000-step eval episode at 32 envs in mode 0, op by op and
+    graphed, from the same state: the returns compared and each way's ms
+    per step in buckets of LONG_EVAL_BUCKET steps."""
+    from cadm_tpu_torch.core.types import batched_history
+
+    _, graphed, eager = graph_pair(matrix_argv("cadm"))
+    start = gen.get_state()
+    buckets, rets = {}, {}
+    for way, trainer in (("op by op", eager), ("graphed", graphed)):
+        env = trainer.env
+        gen.set_state(start)
+        n = trainer.cfg.eval_envs
+        carry = (env.reset(gen, n, 0), batched_history(trainer.model.cfg, n,
+                                                       env.device),
+                 trainer.planner.init_plan(n, env.device))
+        step, _ = trainer._stepper("eval", 0, plan, carry, gen)
+        ret = torch.zeros(n, device=env.device)
+        alive = torch.ones(n, device=env.device)
+        times = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(env.horizon):
+            reward, done = step(t)
+            ret = ret + reward * alive
+            alive = alive * (1.0 - done.float())
+            if (t + 1) % LONG_EVAL_BUCKET == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                times.append(1e3 * (t1 - t0) / LONG_EVAL_BUCKET)
+                t0 = t1
+        buckets[way], rets[way] = times, (ret, gen.get_state())
+        print(f"graph (f) {env.horizon}-step eval episode at {n} envs, "
+              f"{way}: ms per step by {LONG_EVAL_BUCKET}-step bucket "
+              f"{[round(x, 2) for x in times]} (the first graphed bucket "
+              f"holds the capture)")
+    graph_compare("graph (f) 1000-step eval", [
+        ("returns", rets["graphed"][0], rets["op by op"][0]),
+        ("generator state", rets["graphed"][1], rets["op by op"][1])])
+    return buckets
+
+
+def run_graph(pgs, fk_kernel, PRESETS, long: bool = False):
+    """Phase 15: the control step as a captured CUDA graph against the op-
+    by-op step on the card, at the matrix's cheetah configuration. (a) a
+    planned collect of GRAPH_COLLECT_STEPS steps (episodes of
+    GRAPH_EPISODE, so envs auto-reset): env states, ring, histories,
+    plan_mu, the four collect metrics and the generator's state; (b)
+    GRAPH_EVAL_STEPS eval steps in each of modes 0, 1, 2: the returns and
+    the generator's state; (c) a fit between two collects: the graph
+    captured before it replays the new weights; (d) ms per step both ways,
+    device ops per step and the device's idle share (profiler), K1/K2
+    launches = frame_skip × (steps + warm-up steps) on every run; (e) the
+    toy ensemble and baselines (``graph_toys``); (f) with ``long``, a full
+    1000-step eval episode timed in buckets. Returns each run's launches
+    and the measured times."""
+    from cadm_tpu_torch.core.types import tree_map
+    from cadm_tpu_torch.train.step_graph import STEPS
+
+    t_phase = time.perf_counter()
+    clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+    paths, timing = {}, {}
+    argv = matrix_argv("cadm")
+    cfg, graphed, eager = graph_pair(argv, steps_per_itr=GRAPH_COLLECT_STEPS,
+                                     env_horizon=GRAPH_EPISODE)
+    fs = graphed.env.frame_skip
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    states, hists, buf, dyn = eager.init(gen)
+    # a random collect fills the ring and a fit trains the weights
+    states, hists, buf, _ = eager._collect(gen, states, hists, buf, dyn, True)
+    dyn, _ = eager._fit(gen, buf, dyn)
+    plan = eager.planning_state(dyn)
+    start = ((states, hists, buf), gen.get_state())
+
+    # (a) and (d): op by op, graphed (warm-up + capture), again both ways
+    e1, g1 = graph_collect_pair(pgs, fk_kernel, "graph (a) collect", graphed,
+                                eager, start, plan, gen, paths,
+                                GRAPH_COLLECT_STEPS)
+    e2, g2 = graph_collect_pair(pgs, fk_kernel, "graph (d) collect replays",
+                                graphed, eager, start, plan, gen, paths,
+                                GRAPH_COLLECT_STEPS)
+    (key, graph), = graphed.graphs.graphs.items()
+    timing["collect"] = {
+        "envs": cfg.n_envs,
+        "op_by_op_ms": [1e3 * r[3] / GRAPH_COLLECT_STEPS for r in (e1, e2)],
+        "graphed_ms": 1e3 * g2[3] / GRAPH_COLLECT_STEPS,
+        "capture_s": g1[3] - g2[3]}
+    print(f"graph (d) planned collect at {cfg.n_envs} envs, ms per control "
+          f"step (host clock between synchronizes): op by op "
+          f"{timing['collect']['op_by_op_ms'][0]:.2f} / "
+          f"{timing['collect']['op_by_op_ms'][1]:.2f}, graphed "
+          f"{timing['collect']['graphed_ms']:.2f} (replays); the first "
+          f"graphed collect's warm-up and capture took "
+          f"{timing['collect']['capture_s']:.2f} s more")
+    carry = clone(e2[1])
+    timing["collect"]["profile"] = profile_pair(
+        f"graph (d) collect step at {cfg.n_envs} envs",
+        lambda: STEPS["collect"](eager, plan, carry, gen, 0), graph)
+
+    # (c) a fit, then the collect graph captured before it, on the new weights
+    dyn2, _ = eager._fit(gen, e2[0][2], dyn)
+    plan2 = eager.planning_state(dyn2)
+    if torch.equal(plan.params["fwd"][0]["w"], plan2.params["fwd"][0]["w"]):
+        raise AssertionError("graph (c): the fit left the weights as they were")
+    graph_collect_pair(pgs, fk_kernel, "graph (c) collect after a fit",
+                       graphed, eager, start, plan2, gen, paths,
+                       GRAPH_COLLECT_STEPS)
+    if list(graphed.graphs.graphs.values()) != [graph]:
+        raise AssertionError("graph (c): the collect was captured again")
+    del e1, g1, e2, g2, carry, buf, start
+
+    # (b) eval steps in modes 0, 1, 2 at the cell's 32 envs
+    _, graphed_e, eager_e = graph_pair(argv, env_horizon=GRAPH_EVAL_STEPS)
+    n_eval = graphed_e.cfg.eval_envs
+    timing["eval"] = {"envs": n_eval, "op_by_op_ms": [], "graphed_ms": []}
+    for mode in (0, 1, 2):
+        s = gen.get_state()
+        e = graph_eval(pgs, fk_kernel, eager_e, plan2, mode, s, gen)
+        g = graph_eval(pgs, fk_kernel, graphed_e, plan2, mode, s, gen)
+        g2 = graph_eval(pgs, fk_kernel, graphed_e, plan2, mode, s, gen)
+        graph_compare(f"graph (b) eval mode {mode}, {GRAPH_EVAL_STEPS} steps",
+                      [("returns", g[0], e[0]), ("returns, replays", g2[0],
+                                                 e[0]),
+                       ("generator state", g[1], e[1]),
+                       ("generator state, replays", g2[1], e[1])])
+        for way, run in (("op by op", e), ("graphed", g),
+                         ("graphed replays", g2)):
+            check_launches(f"graph (b) eval mode {mode} {way}", run[3], fs,
+                           GRAPH_EVAL_STEPS)
+            paths[f"graph (b) eval mode {mode} {way}"] = run[3]
+        timing["eval"]["op_by_op_ms"].append(1e3 * e[2] / GRAPH_EVAL_STEPS)
+        timing["eval"]["graphed_ms"].append(1e3 * g2[2] / GRAPH_EVAL_STEPS)
+    print(f"graph (d) eval at {n_eval} envs, ms per control step (modes 0, "
+          f"1, 2): op by op "
+          f"{[round(x, 2) for x in timing['eval']['op_by_op_ms']]}, graphed "
+          f"{[round(x, 2) for x in timing['eval']['graphed_ms']]} (replays)")
+    eval_graph = graphed_e.graphs.graphs[next(
+        k for k in graphed_e.graphs.graphs if k[2] == 0)]
+    carry = eval_graph.carry_out()
+    timing["eval"]["profile"] = profile_pair(
+        f"graph (d) eval step at {n_eval} envs",
+        lambda: STEPS["eval"](eager_e, plan2, carry, gen, 0), eval_graph)
+    del graphed, eager, graphed_e, eager_e, eval_graph, carry
+
+    graph_toys(pgs, fk_kernel, PRESETS, paths)
+    if long:
+        timing["long_eval_ms"] = long_eval(pgs, fk_kernel, plan2, gen)
+    print(f"graph: phase {time.perf_counter() - t_phase:.1f} s; "
+          f"{json.dumps(timing)}")
+    return paths, timing
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
                  **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -2054,9 +2452,10 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port on the card.")
     parser.add_argument("--only", choices=["mesh", "matrix", "probes",
-                                           "bench"],
+                                           "bench", "graph"],
                         help="run phase 1 and this phase alone (probes: "
-                             "phase 12, whose snapshot they read, and 13)")
+                             "phase 12, whose snapshot they read, and 13; "
+                             "graph: phase 15 with its 1000-step eval)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
@@ -2084,6 +2483,8 @@ def main(argv=None) -> int:
         paths = run_mesh()
     elif only == "bench":
         paths = run_bench(pgs, fk_kernel, rdyn)[0]
+    elif only == "graph":
+        paths = run_graph(pgs, fk_kernel, PRESETS, long=True)[0]
     elif only:
         launched, snap = run_matrix(pgs, fk_kernel)
         paths = {"matrix half_cheetah cadm": launched}
@@ -2137,6 +2538,7 @@ def main(argv=None) -> int:
     paths.update(bench_paths)
     k1_path += k1_bench
     k2_path += k2_bench
+    paths.update(run_graph(pgs, fk_kernel, PRESETS)[0])
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),
@@ -2174,7 +2576,7 @@ def main(argv=None) -> int:
                      by_envs=k3_sizes),
     ]}
     for preset, ms in step_ms.items():
-        print(f"slice {preset} ms per control step (modes "
+        print(f"slice {preset} ms per control step, replays (modes "
               f"{list(PRESETS[preset].eval_modes)}): "
               f"{', '.join(f'{x:.1f}' for x in ms)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -324,3 +324,83 @@ def test_pgs_kernel_on_captured_family_contacts(dev, name):
     assert sum(int((c[3] > 0).sum()) for c in captured[:2]) > 0
     for A, b, vstar, actmu, lam0, iters in captured[:2]:
         assert_pgs_matches_plain(A, b, vstar, actmu, lam0, iters)
+
+
+GRAPH_TOY = dict(hidden=(16, 16), n_envs=8, eval_envs=4, n_candidates=16,
+                 plan_horizon=5, cem_iters=2, cem_elites=4, warm_start=True,
+                 steps_per_itr=6, env_horizon=4, buffer_capacity=32)
+
+
+@pytest.mark.parametrize("preset,override", [
+    ("halfcheetah_cadm_cem", {}),
+    ("cripple_ant_cadm_ensemble_cem", dict(ensemble_eval="assign")),
+    ("halfcheetah_cadm_cem", dict(model="grbal")),
+])
+def test_step_graph_replays_equal_the_op_by_op_steps(dev, preset, override):
+    """A planned collect through two auto-resets and an eval episode,
+    captured and replayed, against the same trainer op by op from the same
+    weights and generator state (chip_smoke.py phase 15 at toy width):
+    bit for bit or within GRAPH_RTOL, and K1/K2 launched frame_skip × (the
+    control steps + the graph's warm-up steps)."""
+    import dataclasses
+
+    from chip_smoke import graph_compare
+    from cadm_tpu_torch.cli.presets import PRESETS
+    from cadm_tpu_torch.core.types import tree_map
+    from cadm_tpu_torch.train import step_graph
+    from cadm_tpu_torch.train.mb_trainer import MBTrainer
+
+    cfg = dataclasses.replace(PRESETS[preset], **{**GRAPH_TOY, **override})
+    env, model, planner, graphed = cfg.build(dev)
+    eager = MBTrainer(env, model, planner, graphed.cfg, graph=False)
+    assert graphed.graphs is not None and eager.graphs is None
+    gen = torch.Generator(device=dev).manual_seed(0)
+    states, hists, buf, dyn = eager.init(gen)
+    states, hists, buf, _ = eager._collect(gen, states, hists, buf, dyn, True)
+    start, runs = gen.get_state(), []
+    for trainer in (eager, graphed):
+        gen.set_state(start)
+        before = (pgs.launches, fk_kernel.launches, step_graph.warmup_steps)
+        out = trainer._collect(gen, *tree_map(torch.clone, (states, hists,
+                                                            buf)), dyn, False)
+        ret = trainer.evaluate(dyn, 1, gen)
+        torch.cuda.synchronize()
+        steps = cfg.steps_per_itr + env.horizon + (
+            step_graph.warmup_steps - before[2])
+        assert (pgs.launches - before[0], fk_kernel.launches - before[1]) \
+            == (env.frame_skip * steps,) * 2
+        runs.append((out, ret, gen.get_state()))
+    (eo, er, eg), (go, gr, gg) = runs
+    graph_compare(f"toy {preset} {override}", [
+        ("collect", go, eo), ("eval returns", gr, er),
+        ("generator state", gg, eg)])
+    assert sorted(k[:3] for k in graphed.graphs.graphs) == [
+        ("collect", cfg.n_envs, 0), ("eval", cfg.eval_envs, 1)]
+
+
+def test_a_replay_adds_its_recorded_launches(dev):
+    """Capture counts no launch; each replay adds frame_skip K1 and K2
+    launches, and the warm-up's eager launches count as they run."""
+    import dataclasses
+
+    from cadm_tpu_torch.cli.presets import PRESETS
+    from cadm_tpu_torch.core.types import batched_history
+    from cadm_tpu_torch.train import step_graph
+
+    cfg = dataclasses.replace(PRESETS["halfcheetah_cadm_cem"], **GRAPH_TOY)
+    env, model, _, trainer = cfg.build(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dyn = model.init_state(gen)
+    carry = (env.reset(gen, 4), batched_history(model.cfg, 4, dev),
+             trainer.planner.init_plan(4, dev))
+    graph = trainer.graphs.load("eval", 0, dyn, carry, gen)
+    before = (pgs.launches, step_graph.warmup_steps)
+    graph()   # warm-up, capture, one replay
+    warm = step_graph.warmup_steps - before[1]
+    assert warm == step_graph.WARMUP_STEPS
+    assert pgs.launches - before[0] == env.frame_skip * (warm + 1)
+    assert graph.launches == {"pgs": env.frame_skip,
+                              "full_dyn": env.frame_skip, "fk_vel": 0}
+    for k in range(2, 5):
+        graph()
+        assert pgs.launches - before[0] == env.frame_skip * (warm + k)

@@ -2,13 +2,15 @@
 
 A 5-member probabilistic CaDM (JAX-initialized weights) plans on
 HalfCheetah's reward and blowup guard in each ``ensemble_eval`` mode: 'ts1'
-(block-granular TS1, 16 candidates padded to 20 = 5 blocks of 4), 'mean'
-and 'ts1_exact'. ``jax.random`` streams cannot be reproduced in torch, so
+(block-granular TS1, 16 candidates padded to 20 = 5 blocks of 4), 'mean',
+'ts1_exact' and 'assign' (the same blocks, block m under member m). ``jax.random`` streams cannot be reproduced in torch, so
 the test rebuilds the JAX planner's key splits (``_plan_single`` →
 ``_evaluate*``, cadm_tpu/planners/mpc.py) and hands the port the same
 ε, member draws (TS1 permutations, i.i.d. member indices) and, for
 ``sample_predictions``, the same standard normals.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +39,7 @@ OBS, ACT = 17, 6
 PLAN = dict(horizon=H, n_candidates=C, cem_iters=ITERS, cem_elites=ELITES)
 MODEL = dict(obs_dim=OBS, act_dim=ACT, hidden=(32, 32), context="encoder",
              n_members=N, probabilistic=True)
-MODES = ("ts1", "mean", "ts1_exact")
+MODES = ("ts1", "mean", "ts1_exact", "assign")
 
 
 def build(mode, kind="cem", sample=False):
@@ -71,10 +73,10 @@ def evaluate_draws(mode, key):
     """What one JAX ``_evaluate`` call of one env draws from ``key``, step by
     step: (member draws (H, ·), standard normals (H, n, rows, OBS))."""
     members, noise = [], []
-    rows = {"ts1": CM, "mean": C, "ts1_exact": C}[mode]
+    rows = {"ts1": CM, "mean": C, "ts1_exact": C, "assign": CM}[mode]
     rng = key
     for _ in range(H):
-        if mode == "mean":
+        if mode in ("mean", "assign"):
             rng, k_pred = jax.random.split(rng)
         else:
             rng, k_draw, k_pred = jax.random.split(rng, 3)
@@ -136,15 +138,21 @@ def plan_draws(kind, mode, key):
             e_i.append(jax.random.truncated_normal(r_s, -2.0, 2.0, (C, H, ACT)))
             m_i.append(evaluate_draws(mode, r_e)[0])
         eps.append(jnp.stack(e_i))
-        members.append(np.stack(m_i))
-    eps, members = np.asarray(jnp.stack(eps)), np.stack(members)
+        members.append(None if mode == "assign" else np.stack(m_i))
+    eps = np.asarray(jnp.stack(eps))
     if kind == "cem":   # iteration axis first
-        eps, members = np.swapaxes(eps, 0, 1), np.swapaxes(members, 0, 1)
+        eps = np.swapaxes(eps, 0, 1)
+    if mode == "assign":  # draws no members
+        return torch.from_numpy(np.array(eps)), None
+    members = np.stack(members)
+    if kind == "cem":
+        members = np.swapaxes(members, 0, 1)
     return torch.from_numpy(np.array(eps)), torch.from_numpy(members)
 
 
 @pytest.mark.parametrize("kind,mode", [("cem", m) for m in ("ts1",
-                                                              "ts1_exact")]
+                                                              "ts1_exact",
+                                                              "assign")]
                          + [("rs", "ts1")])
 def test_plan_matches_jax_with_the_same_draws(kind, mode):
     jplanner, jstate, planner, state = build(mode, kind)
@@ -202,6 +210,28 @@ def test_member_draws_come_from_the_generator():
         assert not torch.equal(plans[0], plans[2])
 
 
-def test_assign_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ts1"):
-        build("assign")
+def test_assign_matches_mean_on_agreeing_ensemble():
+    """The counterpart of the JAX ``test_ts1_assign_matches_mean_on_agreeing_
+    ensemble`` (tests/test_planner.py): with every member a copy of member
+    0, 'assign', 'ts1' and 'ts1_exact' give 'mean''s plan from the same ε
+    (the member draws move nothing). One generator seed per mode: the port
+    draws ε and members from one stream, so the ε are injected."""
+    _, _, planner, state = build("mean")
+    fwd = [{k: v[:1].expand_as(v).clone() for k, v in layer.items()}
+           for layer in state.params["fwd"]]
+    state = DynamicsState({**state.params, "fwd": fwd}, state.norm)
+    obs, z = map(torch.from_numpy, inputs())
+    eps = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (ITERS, E, C, H, ACT)).clip(-2, 2).astype(np.float32))
+    plans = {}
+    for mode in MODES:
+        p = MPCPlanner(dataclasses.replace(planner.cfg, ensemble_eval=mode),
+                       planner.model, planner.reward_fn, ACT,
+                       bad_transition_fn=planner.bad_transition_fn,
+                       obs_limit=planner.obs_limit)
+        plans[mode] = p.plan(state, obs, z, torch.Generator().manual_seed(0),
+                             noise=eps)
+    for mode in ("assign", "ts1", "ts1_exact"):
+        for got, ref in zip(plans[mode], plans["mean"]):
+            np.testing.assert_allclose(got.numpy(), ref.numpy(),
+                                       atol=ACT_ATOL)
