@@ -136,14 +136,18 @@ def bench_cem(n_envs: int, n_candidates: int, horizon: int,
     return rollouts / dt
 
 
-def bench_train_steps(batch: int, updates: int, device="cuda") -> float:
-    """``Dynamics.update``s/s on (members, ``batch``) bootstrap segment
-    batches from a 64-env × 256-column ring, each timed call starting from
-    the same model state."""
+def train_line(batch: int, updates: int, device, graph: bool = True):
+    """The training line's ``fit()``: ``updates`` ``Dynamics.update``s on
+    (members, ``batch``) bootstrap segment batches from a 64-env ×
+    256-column ring, from the same model state at every call (the draws go
+    on) → the state after. On a card each update is a replay of one
+    captured graph (``train/fit_graph.py``, the reference's jitted scan of
+    updates), unless ``graph`` is False."""
     from cadm_tpu_torch import envs
     from cadm_tpu_torch.train.buffer import ReplayBuffer
+    from cadm_tpu_torch.train.fit_graph import FitGraphs, fitter, ring_key
+    from cadm_tpu_torch.train.step_graph import Graphs
 
-    device = resolve_device(device)
     env = envs.make("half_cheetah", device=device)
     model = _model(env, device)
     mc = model.cfg
@@ -158,16 +162,26 @@ def bench_train_steps(batch: int, updates: int, device="cuda") -> float:
         buf.append(obs, act, obs, done,
                    torch.full((n,), t % 100, dtype=torch.int32,
                               device=device))
+    graphs = (FitGraphs(Graphs(device)) if graph and device.type == "cuda"
+              else None)
+
+    def step(st):
+        idx = buf.draw_indices(gen, (mc.n_members, batch))
+        return model.update(st, buf.gather(*idx, mc.history_k, mc.future_m))
 
     def fit():
-        st = state
+        f = fitter(graphs, "bench", ring_key(buf), state, gen, step)
         for _ in range(updates):
-            idx = buf.draw_indices(gen, (mc.n_members, batch))
-            st, _ = model.update(st, buf.gather(*idx, mc.history_k,
-                                                mc.future_m))
-        return st
+            f.update()
+        return f.final()
 
-    return updates / _time(fit, device)
+    return fit
+
+
+def bench_train_steps(batch: int, updates: int, device="cuda") -> float:
+    """``Dynamics.update``s/s of ``train_line``'s ``fit``."""
+    device = resolve_device(device)
+    return updates / _time(train_line(batch, updates, device), device)
 
 
 def power_limit() -> str | None:

@@ -37,6 +37,7 @@ import torch
 
 from cadm_tpu_torch.core.types import (
     History,
+    constant,
     resolve_device,
     tree_leaves,
     tree_map,
@@ -130,16 +131,20 @@ class NormStats:
 
 @dataclasses.dataclass
 class AdamState:
-    """optax's ``ScaleByAdamState``: the step count and the first and second
-    moments (trees shaped like the parameters)."""
+    """optax's ``ScaleByAdamState``: the step count (an int32 scalar on the
+    parameters' device, as optax's, so a captured update reads it instead of
+    baking in the bias corrections of the step it captured) and the first
+    and second moments (trees shaped like the parameters)."""
 
-    count: int
+    count: Tensor
     mu: dict
     nu: dict
 
     @staticmethod
     def zeros_like(params: dict) -> "AdamState":
-        return AdamState(0, tree_map(torch.zeros_like, params),
+        device = tree_leaves(params)[0].device
+        return AdamState(torch.zeros((), dtype=torch.int32, device=device),
+                         tree_map(torch.zeros_like, params),
                          tree_map(torch.zeros_like, params))
 
 
@@ -164,7 +169,10 @@ def clip_adam_step(params, opt: AdamState, grads: list, lr: float,
     norm ‖g‖ over all leaves is ≥ grad_clip (no epsilon is added, unlike
     ``torch.nn.utils.clip_grad_norm_``). Adam: μ ← (1−b1)·g + b1·μ,
     ν ← (1−b2)·g² + b2·ν, p ← p − lr·μ̂/(√ν̂ + eps) with the bias
-    corrections of step count+1. Returns new tensors.
+    corrections 1 − b^(count+1) of step count+1, computed on the device in
+    float64 and rounded to float32. Returns new tensors; reads nothing on
+    the host and makes no tensor from host data, so a CUDA graph can hold
+    it (the mesh's branch aside, whose sum over ``model`` a graph cannot).
 
     With a ``mesh`` whose model axis splits the leaves under
     ``member_keys``, the norm counts each rank's member block once (summed
@@ -178,8 +186,8 @@ def clip_adam_step(params, opt: AdamState, grads: list, lr: float,
             g_norm = torch.linalg.vector_norm(norms)
         else:
             sq = norms.square()
-            heads = torch.tensor(member_leaves(params, member_keys),
-                                 device=sq.device)
+            heads = constant(member_leaves(params, member_keys), sq.device,
+                             torch.bool)
             g_norm = torch.sqrt(mesh.sum([sq[heads].sum()], "model")[0]
                                 + sq[~heads].sum())
         coef = torch.where(g_norm < grad_clip, 1.0, grad_clip / g_norm)
@@ -190,8 +198,9 @@ def clip_adam_step(params, opt: AdamState, grads: list, lr: float,
             torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
             torch._foreach_mul(tree_leaves(opt.nu), b2))
         count = opt.count + 1
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
-        nu_hat = torch._foreach_div(nu, 1 - b2 ** count)
+        c = count.double()
+        mu_hat = torch._foreach_div(mu, (1 - torch.pow(b1, c)).float())
+        nu_hat = torch._foreach_div(nu, (1 - torch.pow(b2, c)).float())
         step = torch._foreach_div(
             mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS))
         new = torch._foreach_add(leaves, torch._foreach_mul(step, -lr))

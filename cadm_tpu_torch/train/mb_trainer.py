@@ -10,10 +10,13 @@ dynamics ranges, and log one row.
 The reference compiles collect, eval and fit into programs (``lax.scan``
 over time / updates, ``lax.cond`` over skipped epochs). Here they are Python
 loops over batched device work: on a CUDA device each control step of the
-planned collect and of the eval episodes is a replay of a captured CUDA
-graph (``train/step_graph.py``; ``graph=False`` runs it op by op), and the
-epoch loop stops at the early-stop epoch instead of running the skipped
-ones. The metrics and their keys are the reference's.
+collects (random and planned) and of the eval episodes is a replay of a
+captured CUDA graph (``train/step_graph.py``), and so is each update of
+the fit and each estimate of its valid loss (``train/fit_graph.py``; not on
+a mesh, whose fit gathers over ``torch.distributed``); ``graph=False`` runs
+them op by op. The epoch loop stops at the early-stop epoch instead of
+running the skipped ones, with one read on the host an epoch. The metrics
+and their keys are the reference's.
 
 ``train`` can save the whole training state after every iteration
 (``checkpoint_payload``) and resume from it at the next iteration with the
@@ -54,7 +57,8 @@ from cadm_tpu_torch.parallel.mesh import (
 )
 from cadm_tpu_torch.planners.mpc import MPCPlanner
 from cadm_tpu_torch.train.buffer import ReplayBuffer
-from cadm_tpu_torch.train.step_graph import STEPS, StepGraphs
+from cadm_tpu_torch.train.fit_graph import FitGraphs, fitter, ring_key
+from cadm_tpu_torch.train.step_graph import STEPS, StepGraphs, stepper
 from cadm_tpu_torch.utils.checkpoint import restore_parts, to_plain
 
 Tensor = torch.Tensor
@@ -144,10 +148,13 @@ class MBTrainer:
         ``n_envs`` envs and whose model axis splits the members (raises
         ``ValueError`` where either does not divide), or None.
 
-        ``graph``: on a CUDA device, run each control step of the planned
-        collect and of the eval episodes as a replay of a captured CUDA
-        graph (``train/step_graph.py``); False runs them op by op. The CPU
-        always runs them op by op."""
+        ``graph``: on a CUDA device, run each control step of the collects
+        and of the eval episodes as a replay of a captured CUDA graph
+        (``train/step_graph.py``), and off a mesh each update and valid
+        estimate of the fit too (``train/fit_graph.py``); False runs them
+        op by op. The CPU always runs them op by op. On a mesh the fit
+        runs op by op by rule: its gathers and sums over the mesh go
+        through ``torch.distributed``, which a capture cannot hold."""
         if config.fit_protocol not in ("fixed", "epochs"):
             raise ValueError(f"unknown fit_protocol {config.fit_protocol!r}")
         if config.early_stop_metric not in ("loss", "fwd_mse"):
@@ -167,6 +174,9 @@ class MBTrainer:
                      "epochs": self._fit_epochs_impl}[config.fit_protocol]
         self.graphs = (StepGraphs(self) if graph and env.device.type == "cuda"
                        else None)
+        self.fit_graphs = (FitGraphs(self.graphs)
+                           if self.graphs is not None and mesh is None
+                           else None)
         self._sym_maps = None
         if config.symmetry_aug:
             maps = env.symmetry_maps()
@@ -203,23 +213,12 @@ class MBTrainer:
         """(``step(t)``, ``final()``): ``step`` runs control step t of
         ``kind`` (``step_graph.STEPS``) from ``carry`` and returns its
         output (valid until the next step), ``final`` gives the carry
-        after the steps taken. The planned collect and the eval replay the
-        trainer's graphs where it has them; the random collect, and a run
-        with ``noise`` (step t's actions or ε), go op by op."""
-        if self.graphs is not None and kind != "random":
-            if noise is not None:
-                raise ValueError("noise is taken by the op-by-op step only "
-                                 "(MBTrainer(graph=False))")
-            graph = self.graphs.load(kind, mode, dyn_state, carry, g)
-            return (lambda t: graph()), graph.carry_out
-        box = [carry]
-
-        def step(t):
-            box[0], out = STEPS[kind](self, dyn_state, box[0], g, mode,
-                                      None if noise is None else noise[t])
-            return out
-
-        return step, lambda: box[0]
+        after the steps taken. Every kind replays the trainer's graphs
+        where it has them; ``noise`` (step t's actions or ε) is taken by
+        the op-by-op step only (raises with graphs)."""
+        weights = DynamicsState(dyn_state.params, dyn_state.norm)
+        return stepper(self, STEPS, self.graphs, kind, mode, weights, carry,
+                       g, noise)
 
     # ---------------------------------------------------------- collect --
     @torch.no_grad()
@@ -339,10 +338,13 @@ class MBTrainer:
             loss, m = self.model.loss(dyn_state.params, dyn_state.norm,
                                       self._sample(buffer, idx))
             losses.append(loss)
-            mses.append(m.get("fwd_mean_mse", loss.new_tensor(math.nan)))
+            mses.append(m.get("fwd_mean_mse", torch.full_like(loss,
+                                                              math.nan)))
         return torch.stack(losses).mean(), torch.stack(mses).mean()
 
     def _train_step(self, buffer, gen, dyn_state):
+        """One update: draw → gather → (symmetry augmentation) →
+        ``model.update`` → (state, the update's loss)."""
         idx = self._draw(buffer, gen, "train")
         batch = self._sample(buffer, idx)
         if self._sym_maps is not None:
@@ -352,21 +354,32 @@ class MBTrainer:
         dyn_state, m = self.model.update(dyn_state, batch)
         return dyn_state, m["model_loss"]
 
+    def _fitter(self, gen, buffer: ReplayBuffer, dyn_state: DynamicsState):
+        """The fit of ``dyn_state`` on ``buffer``
+        (``fit_graph.EagerFit``/``GraphFit``): ``update()`` → the update's
+        loss, ``valid(indices)`` → (valid loss, forward MSE) on those
+        minibatches, ``final()``. Graph replays where the trainer has fit
+        graphs; injected draws (a ``_draw`` set on the trainer) are taken
+        by the op-by-op fit only."""
+        if self.fit_graphs is not None and "_draw" in vars(self):
+            raise ValueError("injected draws are taken by the op-by-op fit "
+                             "only (MBTrainer(graph=False))")
+        return fitter(
+            self.fit_graphs, "fit", ring_key(buffer), dyn_state, gen,
+            lambda st: self._train_step(buffer, gen, st),
+            lambda st, idx: self._valid_metrics(buffer, idx, st))
+
     @torch.no_grad()
     def _fit_impl(self, gen, buffer: ReplayBuffer, dyn_state: DynamicsState):
         """Fixed protocol: ``model_updates_per_itr`` updates on the train
         partition, valid loss before and after on the same batches."""
-        dyn_state = self._refresh_norm(buffer, dyn_state)
+        fit = self._fitter(gen, buffer, self._refresh_norm(buffer, dyn_state))
         valid_idx = self._draw_valid(buffer, gen)
-        val_before, _ = self._valid_metrics(buffer, valid_idx, dyn_state)
-        losses = []
-        for _ in range(self.cfg.model_updates_per_itr):
-            dyn_state, loss = self._train_step(buffer, gen, dyn_state)
-            losses.append(loss)
-        val_after, fwd_mse_after = self._valid_metrics(buffer, valid_idx,
-                                                       dyn_state)
-        losses = torch.stack(losses)
-        return dyn_state, {
+        val_before, _ = fit.valid(valid_idx)
+        losses = torch.stack([fit.update()
+                              for _ in range(self.cfg.model_updates_per_itr)])
+        val_after, fwd_mse_after = fit.valid(valid_idx)
+        return fit.final(), {
             "fit/model_loss_first": losses[0],
             "fit/model_loss_last": losses[-1],
             "fit/model_loss_mean": losses.mean(),
@@ -387,7 +400,7 @@ class MBTrainer:
         "before".
         """
         cfg = self.cfg
-        dyn_state = self._refresh_norm(buffer, dyn_state)
+        fit = self._fitter(gen, buffer, self._refresh_norm(buffer, dyn_state))
         _, n_mb = epoch_minibatches(buffer.n_train_anchors(), buffer.capacity,
                                     cfg.n_envs, cfg.batch_size,
                                     cfg.epoch_updates_cap)
@@ -395,27 +408,24 @@ class MBTrainer:
             "fwd_mse" else (lambda loss, mse: loss)
 
         valid0 = self._draw_valid(buffer, gen)
-        v0_loss, v0_mse = self._valid_metrics(buffer, valid0, dyn_state)
+        v0_loss, v0_mse = fit.valid(valid0)
         best, since = float(monitored(v0_loss, v0_mse)), 0
         vals = np.full(cfg.max_epochs, np.nan, np.float32)
         train_losses = np.full(cfg.max_epochs, np.nan, np.float32)
         for epoch in range(cfg.max_epochs):
-            losses = []
-            for _ in range(n_mb):
-                dyn_state, loss = self._train_step(buffer, gen, dyn_state)
-                losses.append(loss)
-            v_loss, v_mse = self._valid_metrics(
-                buffer, self._draw_valid(buffer, gen), dyn_state)
-            vals[epoch] = float(monitored(v_loss, v_mse))
-            train_losses[epoch] = torch.stack(losses).nanmean().item()
+            losses = torch.stack([fit.update() for _ in range(n_mb)])
+            val = monitored(*fit.valid(self._draw_valid(buffer, gen)))
+            # the epoch's one read on the host
+            vals[epoch], train_losses[epoch] = torch.stack(
+                [val, losses.nanmean()]).tolist()
             best, since, stop = early_stop_step(
                 best, since, vals[epoch], cfg.min_rel_improve,
                 cfg.early_stop_patience)
             if stop:
                 break
         ran = int(np.isfinite(vals).sum())
-        loss_after, mse_after = self._valid_metrics(buffer, valid0, dyn_state)
-        return dyn_state, {
+        loss_after, mse_after = fit.valid(valid0)
+        return fit.final(), {
             "fit/model_loss_first": train_losses[0],
             "fit/model_loss_last": (train_losses[max(ran - 1, 0)] if ran
                                     else np.nan),

@@ -12,8 +12,14 @@ and the trajectory), GAE with advantages normalized by their population
 std, ``ppo_epochs`` epochs of clipped-surrogate minibatch steps (optax's
 ``clip_by_global_norm`` then Adam, ``clip_adam_step``), the dynamics fit on
 the ring, and a deterministic-mean evaluation of fresh episodes on each
-dynamics range. The reference's scans are Python loops over batched device
-work here; its metrics, keys and their order are kept.
+dynamics range. The reference's jitted programs (cadm_tpu/train/ppo.py:
+76-81) are Python loops over batched device work here; on a CUDA device
+each is replayed from captured CUDA graphs: each control step of the
+collect and of the eval episodes (``train/step_graph.py``; the ring append
+and the trajectory's rows are copied out after each replay), GAE, each PPO
+minibatch step and each update of the model fit (``train/fit_graph.py``;
+not on a mesh). ``graph=False`` and the CPU run them op by op. Its metrics,
+keys and their order are kept.
 
 The reference's quirks are kept: each collect starts its return
 accumulator at 0, so an episode spanning two collects reports only its
@@ -25,7 +31,10 @@ the envs (env-sized draws made for all envs, the rank's block kept); the
 rollout is then gathered over ``dp`` in time-major order and the PPO update
 runs replicated on all of it; the dynamics fit is the MB trainer's (batches
 gathered over ``dp``, members split over ``model``). Rank 0 writes the log
-and the checkpoints, of the gathered state.
+and the checkpoints, of the gathered state. The collect and eval steps keep
+their graphs on a mesh; the PPO update and the fit run op by op there by
+rule (the fit's gathers go through ``torch.distributed``, which a capture
+cannot hold).
 """
 from __future__ import annotations
 
@@ -58,6 +67,8 @@ from cadm_tpu_torch.parallel.mesh import (
     shard_dynamics_state,
 )
 from cadm_tpu_torch.train.buffer import ReplayBuffer
+from cadm_tpu_torch.train.fit_graph import FitGraphs, fitter, ring_key
+from cadm_tpu_torch.train.step_graph import Graph, StepGraphs, stepper
 from cadm_tpu_torch.utils.checkpoint import (
     from_plain,
     restore_parts,
@@ -100,12 +111,57 @@ class PPOState:
     updates: int = 0      # minibatch steps taken
 
 
+def collect_step(trainer, weights, carry, g, mode: int = 0, noise=None):
+    """One collect step of every env under the Gaussian policy (``noise``:
+    its standard normal ε) → ((env states, histories, return accumulator),
+    (the trajectory's row, (prev_obs, obs, ep_step, bad) for the ring)).
+    ``weights``: (``PPOState`` of the policy's params, the model's
+    ``DynamicsState`` of params and norm). On done the env has auto-reset:
+    its context window is wiped and its return restarts."""
+    ppo, dyn = weights
+    env, p = trainer.env, ppo.params
+    states, hists, ret_acc = carry
+    obs_z = trainer._obs_z(dyn, states.obs, hists)
+    mean, log_std = trainer._dist(p, obs_z)
+    eps = noise if noise is not None else randn(g, *mean.shape)
+    act = torch.clamp(mean + torch.exp(log_std) * eps, -1.0, 1.0)
+    prev_obs, ep_step = states.obs, states.t
+    states, obs, reward, done = env.step(states, act, g)
+    bad = env.bad_transition(prev_obs, obs)
+    pushed = trainer.model.push_history(dyn.params, dyn.norm, hists, prev_obs,
+                                        obs - prev_obs, act)
+    hists = tree_where(done, tree_map(torch.zeros_like, pushed), pushed)
+    ret_acc = ret_acc + reward
+    row = {"obs_z": obs_z, "act": act,
+           "logp": trainer._logp(mean, log_std, act),
+           "value": trainer._value(p, obs_z), "reward": reward, "done": done,
+           "ep_return": torch.where(done, ret_acc, math.nan)}
+    ret_acc = torch.where(done, 0.0, ret_acc)
+    return (states, hists, ret_acc), (row, (prev_obs, obs, ep_step, bad))
+
+
+def eval_step(trainer, weights, carry, g, mode: int = 0, noise=None):
+    """One eval step (``PPOTrainer._eval_step``) → ((env states,
+    histories), (reward, done))."""
+    states, hists, _, _, reward, done = trainer._eval_step(*weights, *carry, g,
+                                                           mode)
+    return (states, hists), (reward, done)
+
+
+STEPS = {"collect": collect_step, "eval": eval_step}
+
+
 class PPOTrainer:
     def __init__(self, env: Env, model: Dynamics, config: PPOConfig,
-                 mesh=None):
+                 mesh=None, graph: bool = True):
         """``mesh``: a ``parallel.mesh.Mesh`` whose dp axis splits the
         ``n_envs`` envs and whose model axis splits the members (raises
-        ``ValueError`` where either does not divide), or None."""
+        ``ValueError`` where either does not divide), or None.
+
+        ``graph``: on a CUDA device, replay each collect and eval step from
+        captured CUDA graphs, and off a mesh GAE, each PPO minibatch step
+        and each model update too; False runs them op by op, as the CPU
+        always does."""
         self.env = env
         self.model = model
         self.cfg = config
@@ -115,6 +171,14 @@ class PPOTrainer:
             self.n_local = mesh.local_count(config.n_envs, "dp", "envs")
             mesh.local_count(model.cfg.n_members, "model",
                              "ensemble members")
+        self.graphs = (StepGraphs(self, steps=STEPS)
+                       if graph and env.device.type == "cuda" else None)
+        self.fit_graphs = (FitGraphs(self.graphs)
+                           if self.graphs is not None and mesh is None
+                           else None)
+        # GAE and the flattened rollout, as a graph (its output: the
+        # minibatch steps' static input)
+        self._prep: Optional[Graph] = None
 
     # ------------------------------------------------------------- init --
     @property
@@ -177,35 +241,25 @@ class PPOTrainer:
         normal draws (tests feed both packages the same numbers). The envs are
         this rank's.
         """
-        env, model, p = self.env, self.model, ppo_state.params
         g, n = env_rows(self.mesh, gen, self.cfg.n_envs)
-        ret_acc = torch.zeros(n, device=env.device)
-        traj = {k: [] for k in ("obs_z", "act", "logp", "value", "reward",
-                                "done", "ep_return")}
-        for t in range(self.cfg.rollout_len):
-            obs_z = self._obs_z(dyn_state, env_states.obs, hists)
-            mean, log_std = self._dist(p, obs_z)
-            eps = noise[t] if noise is not None else randn(g, *mean.shape)
-            act = torch.clamp(mean + torch.exp(log_std) * eps, -1.0, 1.0)
-            prev_obs, ep_step = env_states.obs, env_states.t
-            env_states, obs, reward, done = env.step(env_states, act, g)
-            buffer.append(prev_obs, act, obs, done, ep_step,
-                          env.bad_transition(prev_obs, obs))
-            pushed = model.push_history(dyn_state.params, dyn_state.norm,
-                                        hists, prev_obs, obs - prev_obs, act)
-            hists = tree_where(done, tree_map(torch.zeros_like, pushed),
-                               pushed)
-            ret_acc = ret_acc + reward
-            for k, v in (("obs_z", obs_z), ("act", act),
-                         ("logp", self._logp(mean, log_std, act)),
-                         ("value", self._value(p, obs_z)),
-                         ("reward", reward), ("done", done),
-                         ("ep_return", torch.where(done, ret_acc, math.nan))):
-                traj[k].append(v)
-            ret_acc = torch.where(done, 0.0, ret_acc)
-        traj = {k: torch.stack(v) for k, v in traj.items()}
-        last_value = self._value(p, self._obs_z(dyn_state, env_states.obs,
-                                                hists))
+        weights = (PPOState(ppo_state.params, None),
+                   DynamicsState(dyn_state.params, dyn_state.norm))
+        step, final = stepper(
+            self, STEPS, self.graphs, "collect", 0, weights,
+            (env_states, hists, torch.zeros(n, device=self.env.device)), g,
+            noise)
+        steps, traj = self.cfg.rollout_len, {}
+        for t in range(steps):
+            row, (prev_obs, obs, ep_step, bad) = step(t)
+            buffer.append(prev_obs, row["act"], obs, row["done"], ep_step,
+                          bad)
+            for k, v in row.items():  # copied out before the next step
+                if t == 0:
+                    traj[k] = v.new_empty((steps, *v.shape))
+                traj[k][t] = v
+        env_states, hists, _ = final()
+        last_value = self._value(ppo_state.params, self._obs_z(
+            dyn_state, env_states.obs, hists))
         return env_states, hists, buffer, traj, last_value
 
     # -------------------------------------------------------------- gae --
@@ -239,6 +293,26 @@ class PPOTrainer:
         entropy = torch.sum(log_std + 0.5 * (LOG_2PI + 1.0))
         return pg_loss + cfg.value_coef * v_loss - cfg.entropy_coef * entropy
 
+    def _flatten(self, traj: dict, last_value: Tensor) -> dict:
+        """GAE, then the (T, E) block with its advantages and returns
+        flattened time-major: the PPO steps' rows."""
+        adv, returns = self._gae(traj, last_value)
+        return {k: v.reshape((-1,) + v.shape[2:])
+                for k, v in {**traj, "adv": adv, "ret": returns}.items()}
+
+    def _minibatch_step(self, ppo_state: PPOState, flat: dict, idx: Tensor):
+        """One PPO step on the rows ``idx`` of ``flat`` → (state, loss)."""
+        cfg = self.cfg
+        batch = {k: v[idx] for k, v in flat.items()}
+        params = ppo_state.params
+        live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = self._loss(tree_unflatten(params, live), batch)
+            grads = torch.autograd.grad(loss, live)
+        params, opt = clip_adam_step(params, ppo_state.opt_state, list(grads),
+                                     cfg.lr, cfg.max_grad_norm)
+        return PPOState(params, opt, ppo_state.updates + 1), loss.detach()
+
     @torch.no_grad()
     def _ppo_update(self, gen: torch.Generator, ppo_state: PPOState,
                     traj: dict, last_value: Tensor,
@@ -247,34 +321,30 @@ class PPOTrainer:
         the (T, E) block flattened time-major; each epoch takes the first
         mb·minibatches entries of a permutation (``perms`` (epochs, T·E)
         replaces the draws). Returns the new state and the mean loss of the
-        first and the last epoch."""
+        first and the last epoch. With fit graphs GAE is one replay and
+        each step another; the permutations are drawn op by op, one call an
+        epoch, and each step's rows copied into its graph's input."""
         cfg = self.cfg
-        adv, returns = self._gae(traj, last_value)
-        flat = {k: v.reshape((-1,) + v.shape[2:])
-                for k, v in {**traj, "adv": adv, "ret": returns}.items()}
+        if self.fit_graphs is None:
+            flat = self._flatten(traj, last_value)
+        else:
+            if self._prep is None:
+                self._prep = Graph(self.graphs, lambda carry, *inputs: (
+                    carry, self._flatten(*inputs)), (), None)
+            flat = self._prep(traj, last_value)
+        fit = fitter(self.fit_graphs, "ppo", None, ppo_state, None,
+                     lambda st, idx: self._minibatch_step(st, flat, idx))
         n = flat["adv"].shape[0]
         mb = n // cfg.minibatches
-        params, opt, updates = (ppo_state.params, ppo_state.opt_state,
-                                ppo_state.updates)
         epoch_losses = []
         for epoch in range(cfg.ppo_epochs):
             perm = perms[epoch] if perms is not None else torch.randperm(
-                n, generator=gen, device=adv.device)
-            losses = []
-            for idx in perm[: mb * cfg.minibatches].reshape(cfg.minibatches,
-                                                            mb):
-                batch = {k: v[idx] for k, v in flat.items()}
-                live = [x.detach().requires_grad_(True)
-                        for x in tree_leaves(params)]
-                with torch.enable_grad():
-                    loss = self._loss(tree_unflatten(params, live), batch)
-                    grads = torch.autograd.grad(loss, live)
-                params, opt = clip_adam_step(params, opt, list(grads), cfg.lr,
-                                             cfg.max_grad_norm)
-                updates += 1
-                losses.append(loss.detach())
+                n, generator=gen, device=last_value.device)
+            losses = [fit.update(idx) for idx in
+                      perm[: mb * cfg.minibatches].reshape(cfg.minibatches,
+                                                           mb)]
             epoch_losses.append(torch.stack(losses).mean())
-        return PPOState(params, opt, updates), {
+        return fit.final(), {
             "ppo/loss_first": epoch_losses[0],
             "ppo/loss_last": epoch_losses[-1],
         }
@@ -298,20 +368,26 @@ class PPOTrainer:
     def _fit_model(self, gen: torch.Generator, buffer: ReplayBuffer,
                    dyn_state: DynamicsState):
         """The norm refreshed from the whole ring, ``model_updates_per_itr``
-        updates on train segments, then the loss of one valid batch."""
-        dyn_state = dataclasses.replace(dyn_state,
-                                        norm=buffer.norm_stats(self.mesh))
+        updates on train segments, then the loss of one valid batch. With
+        fit graphs each update and the valid loss are replays (injected
+        draws, a ``_draw`` set on the trainer, are taken op by op only)."""
+        if self.fit_graphs is not None and "_draw" in vars(self):
+            raise ValueError("injected draws are taken by the op-by-op fit "
+                             "only (PPOTrainer(graph=False))")
+        fit = fitter(
+            self.fit_graphs, "fit", ring_key(buffer),
+            dataclasses.replace(dyn_state, norm=buffer.norm_stats(self.mesh)),
+            gen,
+            lambda st: self.model.update(st, self._sample(
+                buffer, self._draw(buffer, gen, "train"))),
+            lambda st, idx: self.model.loss(st.params, st.norm,
+                                            self._sample(buffer, idx))[0])
         loss = None
         for _ in range(self.cfg.model_updates_per_itr):
-            dyn_state, m = self.model.update(
-                dyn_state, self._sample(buffer, self._draw(buffer, gen,
-                                                           "train")))
-            loss = m["model_loss"]
-        val_loss, _ = self.model.loss(
-            dyn_state.params, dyn_state.norm,
-            self._sample(buffer, self._draw(buffer, gen, "valid")))
-        return dyn_state, {"fit/model_loss_last": loss,
-                           "fit/valid_loss": val_loss}
+            loss = fit.update()["model_loss"]
+        val_loss = fit.valid(self._draw(buffer, gen, "valid"))
+        return fit.final(), {"fit/model_loss_last": loss,
+                             "fit/valid_loss": val_loss}
 
     # -------------------------------------------------------------- eval --
     @torch.no_grad()
@@ -339,13 +415,15 @@ class PPOTrainer:
         every rank gets all the returns."""
         env = self.env
         g, n = env_rows(self.mesh, gen, self.cfg.eval_envs)
-        states = env.reset(g, n, mode)
-        hists = batched_history(self.model.cfg, n, env.device)
+        weights = (PPOState(ppo_state.params, None),
+                   DynamicsState(dyn_state.params, dyn_state.norm))
+        step, _ = stepper(self, STEPS, self.graphs, "eval", mode, weights,
+                          (env.reset(g, n, mode),
+                           batched_history(self.model.cfg, n, env.device)), g)
         ret = torch.zeros(n, device=env.device)
         alive = torch.ones(n, device=env.device)
-        for _ in range(env.horizon):
-            states, hists, _, _, reward, done = self._eval_step(
-                ppo_state, dyn_state, states, hists, g, mode)
+        for t in range(env.horizon):
+            reward, done = step(t)
             ret = ret + reward * alive
             alive = alive * (1.0 - done.float())
         return ret if n == self.cfg.eval_envs else gather_leading_axis(

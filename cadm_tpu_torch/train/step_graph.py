@@ -1,4 +1,4 @@
-"""The MB trainer's control step, and that step captured as a CUDA graph.
+"""The trainers' control steps, and programs captured as CUDA graphs.
 
 The reference compiles its planned collect (one ``lax.scan`` over time) and
 each eval episode (one ``lax.scan`` over the horizon) with ``jax.jit``
@@ -29,20 +29,30 @@ Before its capture a graph runs ``WARMUP_STEPS`` steps on its capture
 stream (first launches build the kernels, opt them in to shared memory and
 fill caches of host constants, none of which a capture may do), from a copy
 of the carry and with the generator's state saved and restored after, so
-the warm-up moves neither the run's state nor its draws. Those steps launch
-the kernels for real and are counted in ``warmup_steps``. A replay adds
+the warm-up moves neither the run's state nor its draws. The warm-up steps
+of a control step's graph launch the kernels for real and are counted in
+``warmup_steps``. A replay adds
 the K1/K2 launches its capture recorded to the wrappers' counts
 (``ops._build.add_replayed``). The graphs of a trainer share one memory
 pool and one capture stream: they never run at once. A failed capture or
 replay raises; nothing returns to the op-by-op step.
 
-Which steps are captured is the trainer's rule (``MBTrainer``): the planned
-collect and the eval episodes on a CUDA device, for every model and planner
-(GrBAL's adaptation step, autograd included, captures too) and on a mesh
-(its gathers are outside the step). The random-action collect, the fit and
-the PPO trainer run op by op, and the CPU keeps the op-by-op loop; a
-``StepGraph`` made with ``capture=False`` runs its body on its static
-buffers without capturing (the CPU tests check the bookkeeping that way).
+The machinery is general: a ``Graph`` runs any ``body(carry, *inputs) →
+(carry, output)`` on static buffers, and ``train/fit_graph.py`` captures a
+fit's updates with it on the same pool and stream. Which programs are
+captured is the trainer's rule. On a CUDA device: every control step of the
+MB trainer's collects (random and planned) and eval episodes, for every
+model and planner (GrBAL's adaptation step, autograd included, captures
+too); the PPO trainer's collect and eval steps (``train/ppo.py``); and, off
+a mesh, each update and valid estimate of a fit, GAE and each PPO
+minibatch step. On a mesh the steps keep their graphs (their gathers are
+outside the step), while the fit and the PPO update run op by op: their
+gathers and sums go through ``torch.distributed``, which a capture cannot
+hold. The one jitted program of the reference still run op by op is the
+``Sampler``'s rollout (``train/sampler.py``), which no trainer calls. The
+CPU and ``graph=False`` keep the op-by-op loop; a ``StepGraphs`` made with
+``capture=False`` runs its bodies on its static buffers without capturing
+(the CPU tests check the bookkeeping that way).
 """
 from __future__ import annotations
 
@@ -52,8 +62,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from cadm_tpu_torch.core.rng import EnvRows, rand
-from cadm_tpu_torch.core.types import tree_map, tree_where
-from cadm_tpu_torch.models.dynamics import DynamicsState
+from cadm_tpu_torch.core.types import leading_dim, tree_map, tree_where
 from cadm_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
@@ -139,19 +148,38 @@ def _copy_into(dst, src) -> None:
     tree_map(Tensor.copy_, dst, src)
 
 
-class StepGraph:
-    """One control step ``fn(trainer, dyn, carry, gen, mode)`` on static
-    buffers, its trainer, weights, memory pool and capture stream those of
-    ``owner`` (a ``StepGraphs``): ``load`` a carry, call the object once per
-    step (→ the step's output, valid until the next call), ``carry_out`` the
-    carry after. Where the owner captures, the first call warms up and
-    captures the step and every call replays it; else every call runs the
-    body."""
+class Graphs:
+    """One memory pool and one capture stream, shared by the graphs of a
+    trainer (none, and no capture, with ``capture=False``). The graphs never
+    run at once, and what one leaves for another lives in static buffers
+    outside the pool."""
 
-    def __init__(self, owner: "StepGraphs", fn: Callable, mode: int, carry,
-                 gen):
-        self.owner, self.fn, self.mode, self.gen = owner, fn, mode, gen
+    def __init__(self, device, capture: bool = True):
+        self.pool = self.stream = None
+        if capture:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device=device)
+
+
+class Graph:
+    """``body(carry, *inputs) → (carry, out)`` on static buffers, with the
+    memory pool and capture stream of ``owner`` (a ``Graphs``): ``load`` a
+    carry, call the object with the inputs (copied into static inputs) →
+    the output, valid until the next call; ``carry_out`` the carry after.
+    Where the owner captures, the first call warms up and captures the body
+    and every call replays it; else every call runs the body.
+
+    ``gen`` (a ``torch.Generator``, an ``EnvRows`` or None where the body
+    draws nothing) is registered with the capture. ``env_steps``: the body
+    is one env control step, so each warm-up step counts in
+    ``warmup_steps``."""
+
+    def __init__(self, owner: Graphs, body: Callable, carry, gen,
+                 env_steps: bool = False):
+        self.owner, self.body, self.gen = owner, body, gen
+        self.env_steps = env_steps
         self.carry = tree_map(torch.clone, carry)
+        self.inputs: tuple = ()
         self.out = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Optional[dict] = None  # K1/K2/K3 launches a replay runs
@@ -163,8 +191,7 @@ class StepGraph:
         return tree_map(torch.clone, self.carry)
 
     def _run(self) -> None:
-        carry, out = self.fn(self.owner.trainer, self.owner.dyn, self.carry,
-                             self.gen, self.mode)
+        carry, out = self.body(self.carry, *self.inputs)
         if self.out is None:
             self.out = tree_map(torch.empty_like, out)
         # the output first: it may hold the carry's old leaves (prev_obs,
@@ -175,25 +202,34 @@ class StepGraph:
     def _capture(self) -> None:
         global warmup_steps
         gen = self.gen.gen if isinstance(self.gen, EnvRows) else self.gen
-        carry, rng = self.carry_out(), gen.get_state()
+        carry = self.carry_out()
+        rng = None if gen is None else gen.get_state()
         stream = self.owner.stream
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
             for _ in range(WARMUP_STEPS):
                 self._run()
         torch.cuda.current_stream().wait_stream(stream)
-        warmup_steps += WARMUP_STEPS
-        gen.set_state(rng)
+        if self.env_steps:
+            warmup_steps += WARMUP_STEPS
+        if gen is not None:
+            gen.set_state(rng)
         self.load(carry)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(gen)
+        if gen is not None:
+            graph.register_generator_state(gen)
         before = dict(_build.captured)
         with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
             self._run()
         self.launches = {k: n - before[k] for k, n in _build.captured.items()}
         self.graph = graph
 
-    def __call__(self):
+    def __call__(self, *inputs):
+        if inputs:
+            if self.inputs:
+                _copy_into(self.inputs, inputs)
+            else:
+                self.inputs = tree_map(torch.clone, inputs)
         if self.owner.stream is None:
             self._run()
             return self.out
@@ -203,39 +239,82 @@ class StepGraph:
         _build.add_replayed(self.launches)
         return self.out
 
+    def reset(self) -> None:
+        """Drop the capture (its memory goes back to the pool)."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
 
-class StepGraphs:
+
+class StepGraph(Graph):
+    """One control step ``fn(trainer, weights, carry, gen, mode)`` (→
+    (carry, output)) as a ``Graph`` whose trainer and static weights are
+    those of ``owner`` (a ``StepGraphs``)."""
+
+    def __init__(self, owner: "StepGraphs", fn: Callable, mode: int, carry,
+                 gen):
+        super().__init__(owner, lambda c: fn(owner.trainer, owner.weights, c,
+                                             gen, mode),
+                         carry, gen, env_steps=True)
+
+
+class StepGraphs(Graphs):
     """A trainer's step graphs, one per (kind, env count, mode, generator),
     with one set of static weights, one memory pool and one capture stream
-    (none, and no capture, with ``capture=False``)."""
+    (none, and no capture, with ``capture=False``). ``steps`` maps a kind
+    to its step function (the MB trainer's ``STEPS`` by default)."""
 
-    def __init__(self, trainer, capture: bool = True):
+    def __init__(self, trainer, capture: bool = True,
+                 steps: Optional[Dict[str, Callable]] = None):
+        super().__init__(trainer.env.device, capture)
         self.trainer = trainer
+        self.steps = STEPS if steps is None else steps
         self.graphs: Dict[tuple, StepGraph] = {}
-        self.dyn: Optional[DynamicsState] = None
-        self.pool = self.stream = None
-        if capture:
-            self.pool = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream(device=trainer.env.device)
+        self.weights = None
 
-    def _load_weights(self, dyn_state) -> None:
-        if self.dyn is None:
-            self.dyn = DynamicsState(tree_map(torch.clone, dyn_state.params),
-                                     tree_map(torch.clone, dyn_state.norm))
-            return
-        _copy_into(self.dyn.params, dyn_state.params)
-        _copy_into(self.dyn.norm, dyn_state.norm)
+    def _load_weights(self, weights) -> None:
+        if self.weights is None:
+            self.weights = tree_map(torch.clone, weights)
+        else:
+            _copy_into(self.weights, weights)
 
-    def load(self, kind: str, mode: int, dyn_state, carry, gen) -> StepGraph:
-        """The graph of a ``kind`` step ("collect" or "eval") in ``mode``
-        for ``carry``'s envs, loaded with ``dyn_state``'s weights and
-        ``carry``."""
-        self._load_weights(dyn_state)
-        key = (kind, carry[2].shape[0], mode, gen)
+    def load(self, kind: str, mode: int, weights, carry, gen) -> StepGraph:
+        """The graph of a ``kind`` step in ``mode`` for ``carry``'s envs,
+        loaded with ``weights`` (what the step function reads as its
+        second argument: the MB trainer's ``DynamicsState`` of params and
+        norm) and ``carry``."""
+        self._load_weights(weights)
+        key = (kind, leading_dim(carry), mode, gen)
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = StepGraph(self, STEPS[kind], mode,
+            graph = self.graphs[key] = StepGraph(self, self.steps[kind], mode,
                                                  carry, gen)
         else:
             graph.load(carry)
         return graph
+
+
+def stepper(trainer, steps: Dict[str, Callable],
+            graphs: Optional[StepGraphs], kind: str, mode: int, weights, carry,
+            g, noise: Optional[Tensor] = None):
+    """(``step(t)``, ``final()``) of ``trainer``'s ``kind`` steps (``steps``
+    maps a kind to its function) from ``carry``: ``step`` runs control step
+    t and returns its output (valid until the next step), ``final`` gives
+    the carry after the steps taken. With ``graphs`` each step is a replay
+    of its graph; else the step runs op by op. ``noise`` (step t's actions
+    or ε) is taken by the op-by-op step only."""
+    if graphs is not None:
+        if noise is not None:
+            raise ValueError("noise is taken by the op-by-op step only "
+                             f"({type(trainer).__name__}(graph=False))")
+        graph = graphs.load(kind, mode, weights, carry, g)
+        return (lambda t: graph()), graph.carry_out
+    fn = steps[kind]
+    box = [carry]
+
+    def step(t):
+        box[0], out = fn(trainer, weights, box[0], g, mode,
+                         None if noise is None else noise[t])
+        return out
+
+    return step, lambda: box[0]

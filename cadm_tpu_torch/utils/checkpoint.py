@@ -51,7 +51,8 @@ def from_plain(template: Any, plain: Any) -> Any:
     """``plain`` (from ``to_plain``) rebuilt in the structure of
     ``template``: its dataclasses, tuples and lists. Raises where a
     tensor's shape or dtype differs from the template's (a checkpoint of
-    another configuration)."""
+    another configuration); a number where the template holds a 0-d tensor
+    becomes such a tensor."""
     if dataclasses.is_dataclass(template):
         return dataclasses.replace(template, **{
             f.name: from_plain(getattr(template, f.name), plain[f.name])
@@ -67,6 +68,11 @@ def from_plain(template: Any, plain: Any) -> Any:
                              f"{len(template)}")
         return type(template)(from_plain(t, p) for t, p in zip(template, plain))
     if isinstance(template, torch.Tensor):
+        if isinstance(plain, (int, float)) and template.ndim == 0:
+            # a scalar saved as a number (``AdamState.count`` was a host
+            # int in the checkpoints of earlier versions)
+            return torch.tensor(plain, dtype=template.dtype,
+                                device=template.device)
         if plain.shape != template.shape or plain.dtype != template.dtype:
             raise ValueError(f"checkpoint tensor {tuple(plain.shape)} "
                              f"{plain.dtype} != {tuple(template.shape)} "

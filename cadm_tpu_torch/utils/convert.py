@@ -50,10 +50,12 @@ def params_from_jax(params_np: Mapping, norm_np: Any, device="cuda"
 def adam_state_from_jax(adam_np: Any, device="cuda") -> AdamState:
     """The port's ``AdamState`` from optax's ``ScaleByAdamState`` (``count``,
     ``mu``, ``nu`` as numpy; for the model's ``optax.chain(clip, adam)``
-    state it is ``opt_state[1][0]``)."""
+    state it is ``opt_state[1][0]``); the count an int32 scalar on
+    ``device``, as optax's."""
     device = resolve_device(device)
-    return AdamState(int(np.asarray(adam_np.count)),
-                     _to_torch(adam_np.mu, device),
+    count = torch.tensor(int(np.asarray(adam_np.count)), dtype=torch.int32,
+                         device=device)
+    return AdamState(count, _to_torch(adam_np.mu, device),
                      _to_torch(adam_np.nu, device))
 
 

@@ -38,7 +38,8 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    and ``hopper_ppo_cadm`` at toy width (heads 16×16, policy 8×8, 4 envs,
    rollout 8) on the card against the CPU: one collect, one PPO update,
    one fit and one eval step from the same start states, weights, ε,
-   permutations and segment indices;
+   permutations and segment indices (op by op, where injected draws are
+   taken);
 7. the training path at full width through the CLI
    (``cadm_tpu_torch.cli.run.main``), cut in depth only: 2 iterations
    (random collect, then planned) of 20 control steps, 10-step episodes, for
@@ -145,16 +146,35 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    within GRAPH_RTOL relative (printed). With ``--only graph`` also (f): a
    1000-step eval episode at 32 envs both ways, timed in 100-step buckets.
 
-The MB trainer's planned collect and eval steps are graph replays on every
-path; the steps a graph runs as warm-up before its capture launch K1/K2 too,
-so every gate expects frame_skip × (control steps + warm-up steps). Each path of phases 7–15 sets the launch counts (and the
-warm-up count) to 0 before it runs and reads them after (in its rank's
-process on a mesh).
+16. the fit, the random collect and PPO's programs as captured CUDA graphs
+   (``train/fit_graph.py``, ``train/step_graph.py``) against the same
+   programs op by op, from the same weights, ring and generator state: (a)
+   the matrix cheetah's Vanilla, CaDM, stacked, ReBAL and GrBAL and the
+   matrix cripple_ant's 5-member PE-TS + CaDM with symmetry augmentation
+   (256 envs, batch 256, heads 4×200): a random collect of 40 steps (env
+   states, ring, histories, metrics, generator state) and a fit of 2 epochs
+   on its ring, graphed then replayed (parameters, norm, Adam moments and
+   count, every fit metric, generator state); (b) ``hopper_ppo_cadm`` at its
+   width (128 envs, rollout 256, eval 16, 100-step episodes): a collect,
+   the PPO update (GAE and 80 minibatch steps), two model fits of 200
+   updates and eval episodes in modes 0, 1, 2, graphed and again
+   (replays); (c) the bench's update line; (d) Adam's bias corrections
+   computed on the card against the host's for counts up to 300,000. Each
+   bit for bit, or a float within GRAPH_RTOL relative (printed); ms a step
+   or an update both ways; K1/K2 launches of every collect and eval.
+
+The trainers' collect and eval steps (MB: random and planned; PPO) are
+graph replays on every path, and off a mesh so are the fits' updates and
+PPO's update; the steps a graph runs as warm-up before its capture launch
+K1/K2 too, so every gate expects frame_skip × (control steps + warm-up
+steps). Phase 11's meshes fit op by op, by the trainers' rule. Each path of
+phases 7–16 sets the launch counts (and the warm-up count) to 0 before it
+runs and reads them after (in its rank's process on a mesh).
 
 ``python3 chip_smoke.py --only mesh`` (``--only matrix``, ``--only bench``,
-``--only graph``) runs phase 1 and phase 11 (12, 14, 15) alone, ``--only
-probes`` phases 1, 12 and 13, and prints each path's launches (no JSON
-lines).
+``--only graph``, ``--only fitgraph``) runs phase 1 and phase 11 (12, 14,
+15, 16) alone, ``--only probes`` phases 1, 12 and 13, and prints each
+path's launches (no JSON lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -819,10 +839,14 @@ def run_toy_ppo(cfg, device, start, noise, perms, fit_idx):
     ``device`` from the CPU start state ``start`` (env states, histories,
     ring, PPO state, model state), with the collect's ε, the update's
     permutations and the fit's segment indices given (``fit_idx`` None:
-    drawn here and returned)."""
+    drawn here and returned), op by op (``PPOTrainer(graph=False)``; phase
+    16 holds the graphed programs to these)."""
     from cadm_tpu_torch.core.types import tree_leaves, tree_map
+    from cadm_tpu_torch.train.ppo import PPOTrainer
 
-    _, _, _, tr = cfg.build(device)
+    env, model, _, tr = cfg.build(device)
+    # op by op: the injected ε and segment indices are taken there only
+    tr = PPOTrainer(env, model, tr.cfg, graph=False)
     # copies: the collect writes the ring in place
     to = lambda t: tree_map(lambda x: x.to(device, copy=True), t)  # noqa: E731
     states, hists, buf, ps, dyn = to(start)
@@ -2438,6 +2462,276 @@ def run_graph(pgs, fk_kernel, PRESETS, long: bool = False):
     return paths, timing
 
 
+# ------------------------------------------ phase 16: the graphed fit ------
+# The fit's updates and valid estimates (train/fit_graph.py), the random
+# collect, and PPO's collect, eval, GAE, minibatch steps and model fit as
+# captured CUDA graphs, each against the same program op by op from the same
+# weights, ring and generator state, bit for bit (or a float within
+# GRAPH_RTOL, as phase 15). The MB fits at the matrix's width: 2 epochs on a
+# 40-step ring of 256 envs (batch 256, heads 4×200).
+FIT_RING_STEPS, FIT_EPOCHS = 40, 2
+FIT_MODELS = ("vanilla", "cadm", "stacked", "rebal", "grbal")
+PPO_GRAPH_DEPTH = dict(env_horizon=100)   # hopper's 500-step episodes cut
+PPO_GRAPH_MODES = (0, 1, 2)
+BENCH_LINE = (256, 50)   # the bench's update line: batch, updates a call
+ADAM_COUNTS = 300_000    # Adam counts whose bias corrections are checked
+
+
+def cell_argv(family: str, model: str) -> list:
+    """The matrix's ``family`` cell of ``model`` as CLI flags."""
+    from cadm_tpu_torch.cli.matrix import FAMILY_BASE, MODEL_VARIANTS
+
+    return cli_flags({**FAMILY_BASE[family], **MODEL_VARIANTS[model],
+                      "eval_modes": (0, 1, 2)})
+
+
+def sync_timed(fn):
+    """(fn(), seconds between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fit_pair(tag, graphed, eager, gen, buf, dyn):
+    """The op-by-op fit and the graphed fit (its capture, then replays of
+    the same graphs) from the same generator state, compared → (updates,
+    op-by-op s, graphed s with its capture, graphed s of replays)."""
+    start = gen.get_state()
+    runs = {}
+    for way, trainer in (("op by op", eager), ("graphed", graphed),
+                         ("replays", graphed)):
+        gen.set_state(start)
+        (state, metrics), dt = sync_timed(lambda: trainer._fit(gen, buf, dyn))
+        runs[way] = (state, metrics, gen.get_state(), dt)
+    if graphed.fit_graphs.fits["fit"].steps.graph is None:
+        raise AssertionError(f"{tag}: the graphed fit captured nothing")
+    e = runs["op by op"]
+    for way in ("graphed", "replays"):
+        g = runs[way]
+        graph_compare(f"{tag} fit, {way}", [
+            ("params", g[0].params, e[0].params), ("norm", g[0].norm, e[0].norm),
+            ("adam", g[0].opt_state, e[0].opt_state),
+            ("metrics", {k: torch.as_tensor(v) for k, v in g[1].items()},
+             {k: torch.as_tensor(v) for k, v in e[1].items()}),
+            ("generator state", g[2], e[2])])
+        if g[0].updates != e[0].updates:
+            raise AssertionError(f"{tag}: updates {g[0].updates} != "
+                                 f"{e[0].updates}")
+    return (e[0].updates - dyn.updates, e[3], runs["graphed"][3],
+            runs["replays"][3])
+
+
+def mb_fit_case(pgs, fk_kernel, tag, argv, paths, timing):
+    """(a) a random collect of FIT_RING_STEPS steps both ways (its graph
+    against op by op: env states, ring, histories, metrics, generator
+    state; K1/K2 launches), then ``fit_pair`` on the ring it filled."""
+    from cadm_tpu_torch.core.types import tree_map
+
+    cfg, graphed, eager = graph_pair(argv, steps_per_itr=FIT_RING_STEPS,
+                                     max_epochs=FIT_EPOCHS, n_itr=1)
+    if graphed.fit_graphs is None:
+        raise AssertionError(f"{tag}: the trainer has no fit graphs")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    states, hists, buf, dyn = eager.init(gen)
+    start = ((states, hists, buf), gen.get_state())
+    runs = {}
+    for way, trainer in (("op by op", eager), ("graphed", graphed)):
+        gen.set_state(start[1])
+        launched = []
+        with counted(pgs, fk_kernel, launched):
+            out, dt = sync_timed(lambda: trainer._collect(
+                gen, *tree_map(torch.clone, start[0]), dyn, True))
+        runs[way] = (out, gen.get_state(), dt)
+        check_launches(f"{tag} random collect {way}", launched,
+                       graphed.env.frame_skip, FIT_RING_STEPS)
+        paths[f"fitgraph {tag} random collect {way}"] = launched
+    e, g = runs["op by op"], runs["graphed"]
+    graph_compare(f"{tag} random collect", [
+        ("env states", g[0][0], e[0][0]), ("histories", g[0][1], e[0][1]),
+        ("ring", g[0][2], e[0][2]), ("collect metrics", g[0][3], e[0][3]),
+        ("generator state", g[1], e[1])])
+    buf = e[0][2]
+    n, eager_s, graph_s, replay_s = fit_pair(tag, graphed, eager, gen, buf,
+                                             dyn)
+    timing[tag] = dict(
+        updates=n, op_by_op_ms=1e3 * eager_s / n, graphed_ms=1e3 * graph_s / n,
+        replay_ms=1e3 * replay_s / n, op_by_op_per_s=n / eager_s,
+        replay_per_s=n / replay_s,
+        random_collect_ms=[1e3 * r[2] / FIT_RING_STEPS
+                           for r in (e, g)])
+    print(f"{tag}: {n} updates ({FIT_EPOCHS} epochs, ring of "
+          f"{FIT_RING_STEPS} steps at {cfg.n_envs} envs, batch "
+          f"{cfg.batch_size}): op by op {1e3 * eager_s / n:.2f} ms an update "
+          f"({n / eager_s:.1f} updates/s), graphed {1e3 * graph_s / n:.2f} "
+          f"(its warm-up and capture included), replays "
+          f"{1e3 * replay_s / n:.2f} ({n / replay_s:.1f} updates/s); random "
+          f"collect {timing[tag]['random_collect_ms'][0]:.2f} → "
+          f"{timing[tag]['random_collect_ms'][1]:.2f} ms a step")
+
+
+def ppo_graph_case(pgs, fk_kernel, PRESETS, paths, timing,
+                   preset="hopper_ppo_cadm"):
+    """(b) PPO + CaDM at the preset's width: a collect of its rollout, the
+    PPO update, the model fit (twice on the same ring: the second graphed
+    one replays) and eval episodes in every mode, op by op
+    (``PPOTrainer(graph=False)``) and graphed (then again: replays bar the
+    model fit's capture on the new ring), compared; K1/K2 launches of the
+    collects and evals; ms a step and an update."""
+    from cadm_tpu_torch.core.types import tree_map
+    from cadm_tpu_torch.train.ppo import PPOTrainer
+
+    cfg = dataclasses.replace(PRESETS[preset], **PPO_GRAPH_DEPTH)
+    env, model, _, graphed = cfg.build("cuda")
+    eager = PPOTrainer(env, model, graphed.cfg, graph=False)
+    if graphed.graphs is None or graphed.fit_graphs is None:
+        raise AssertionError(f"{preset}: the PPO trainer has no graphs")
+    fs, T = env.frame_skip, cfg.rollout_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    start = eager.init(gen)
+    s0 = gen.get_state()
+    clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+    runs = {}
+    for way, trainer in (("op by op", eager), ("graphed", graphed),
+                         ("replays", graphed)):
+        gen.set_state(s0)
+        states, hists, buf, ps, dyn = clone(start)
+        launched = []
+        with counted(pgs, fk_kernel, launched):
+            col, c_s = sync_timed(lambda: trainer._collect(
+                gen, states, hists, buf, ps, dyn))
+        check_launches(f"ppo {preset} collect {way}", launched, fs, T)
+        paths[f"fitgraph ppo {preset} collect {way}"] = launched
+        traj = dict(col[3])
+        traj.pop("ep_return")
+        (ps2, ppo_m), u_s = sync_timed(lambda: trainer._ppo_update(
+            gen, ps, traj, col[4]))
+        (dyn2, fit_m), f_s = sync_timed(lambda: trainer._fit_model(
+            gen, col[2], dyn))
+        (dyn3, _), f2_s = sync_timed(lambda: trainer._fit_model(
+            gen, col[2], dyn2))
+        rets, e_s = [], []
+        for mode in PPO_GRAPH_MODES:
+            launched = []
+            with counted(pgs, fk_kernel, launched):
+                r, dt = sync_timed(lambda: trainer.evaluate(ps2, dyn2, mode,
+                                                            gen))
+            check_launches(f"ppo {preset} eval mode {mode} {way}", launched,
+                           fs, env.horizon)
+            paths[f"fitgraph ppo {preset} eval mode {mode} {way}"] = launched
+            rets.append(r)
+            e_s.append(dt)
+        runs[way] = dict(collect=col, update=(ps2, ppo_m), fit=(dyn2, fit_m),
+                         fit2=dyn3, returns=rets, gen=gen.get_state(),
+                         s=(c_s, u_s, f_s, e_s, f2_s))
+    e = runs["op by op"]
+    for way in ("graphed", "replays"):
+        g = runs[way]
+        graph_compare(f"ppo {preset} {way}", [
+            ("collect", g["collect"], e["collect"]),
+            ("ppo state", [g["update"][0].params, g["update"][0].opt_state],
+             [e["update"][0].params, e["update"][0].opt_state]),
+            ("ppo metrics", g["update"][1], e["update"][1]),
+            ("model state", [g["fit"][0].params, g["fit"][0].opt_state],
+             [e["fit"][0].params, e["fit"][0].opt_state]),
+            ("fit metrics", g["fit"][1], e["fit"][1]),
+            ("model state, second fit", g["fit2"].params, e["fit2"].params),
+            ("eval returns", g["returns"], e["returns"]),
+            ("generator state", g["gen"], e["gen"])])
+        if (g["update"][0].updates, g["fit"][0].updates) != (
+                e["update"][0].updates, e["fit"][0].updates):
+            raise AssertionError(f"ppo {preset} {way}: update counts differ")
+    fits = graphed.fit_graphs.fits
+    if graphed._prep.graph is None or any(
+            fits[k].steps.graph is None for k in ("ppo", "fit")):
+        raise AssertionError(f"ppo {preset}: a graph was not captured")
+    mbs = cfg.ppo_epochs * cfg.ppo_minibatches
+    timing[f"ppo {preset}"] = {
+        way: dict(collect_ms=1e3 * r["s"][0] / T,
+                  ppo_update_ms=1e3 * r["s"][1] / mbs,
+                  fit_update_ms=[1e3 * r["s"][i] / cfg.model_updates_per_itr
+                                 for i in (2, 4)],
+                  eval_ms=[1e3 * x / env.horizon for x in r["s"][3]])
+        for way, r in runs.items()}
+    for way, t in timing[f"ppo {preset}"].items():
+        print(f"ppo {preset} {way}: collect {t['collect_ms']:.2f} ms a step "
+              f"at {cfg.n_envs} envs, PPO {t['ppo_update_ms']:.2f} ms a "
+              f"minibatch step ({mbs}), fit "
+              f"{t['fit_update_ms'][0]:.2f} / {t['fit_update_ms'][1]:.2f} ms "
+              f"an update ({cfg.model_updates_per_itr}; a second fit on the "
+              f"same ring), eval "
+              f"{[round(x, 2) for x in t['eval_ms']]} ms a step at "
+              f"{cfg.eval_envs} envs (modes {list(PPO_GRAPH_MODES)})"
+              + (" (captures included)" if way == "graphed" else ""))
+
+
+def bench_line_case(timing):
+    """(c) the bench's update line (``bench.train_line``) graphed against op
+    by op: the states after a call bit for bit, then updates/s of a second
+    call each way."""
+    from cadm_tpu_torch import bench
+
+    dev = torch.device("cuda")
+    fits = {way: bench.train_line(*BENCH_LINE, dev, graph=way == "graphed")
+            for way in ("op by op", "graphed")}
+    first = {way: fit() for way, fit in fits.items()}
+    graph_compare("bench update line", [
+        ("params", first["graphed"].params, first["op by op"].params),
+        ("adam", first["graphed"].opt_state, first["op by op"].opt_state)])
+    rate = {way: BENCH_LINE[1] / sync_timed(fit)[1]
+            for way, fit in fits.items()}
+    timing["bench update line"] = rate
+    print(f"bench update line ({BENCH_LINE[1]} updates of batch "
+          f"{BENCH_LINE[0]}, 5 members): op by op {rate['op by op']:.1f}, "
+          f"graphed {rate['graphed']:.1f} updates/s (a call after the first)")
+
+
+def adam_counts():
+    """The bias corrections 1 − b^count of ``clip_adam_step`` on the card
+    (float64 pow, rounded to float32) against the host's float64 power,
+    rounded likewise, for counts 1 … ADAM_COUNTS: the count's place (device
+    or host) must not move the corrections."""
+    from cadm_tpu_torch.models.dynamics import ADAM_B1, ADAM_B2
+
+    c = torch.arange(1, ADAM_COUNTS + 1, device="cuda", dtype=torch.int32)
+    differ = {}
+    for b in (ADAM_B1, ADAM_B2):
+        dev = (1 - torch.pow(b, c.double())).float().cpu()
+        host = torch.tensor([1 - b ** k for k in range(1, ADAM_COUNTS + 1)],
+                            dtype=torch.float64).float()
+        differ[b] = int((dev != host).sum())
+    print(f"adam bias corrections on the card vs the host's, counts 1 … "
+          f"{ADAM_COUNTS}: {differ} differ")
+    if any(differ.values()):
+        raise AssertionError(f"adam bias corrections differ: {differ}")
+
+
+def run_fitgraph(pgs, fk_kernel, PRESETS):
+    """Phase 16: the graphed fit, random collect and PPO programs against
+    op by op on the card. (a) the matrix cheetah's Vanilla, CaDM, stacked,
+    ReBAL and GrBAL and the matrix cripple_ant's 5-member PE-TS + CaDM with
+    symmetry augmentation: a random collect of FIT_RING_STEPS steps and a
+    fit of FIT_EPOCHS epochs on its ring; (b) ``hopper_ppo_cadm`` at its
+    width (128 envs, rollout 256, eval 16): collect, update, model fit and
+    evals; (c) the bench's update line; (d) Adam's bias corrections on the
+    card. Returns each path's launches and the times."""
+    t_phase = time.perf_counter()
+    paths, timing = {}, {}
+    adam_counts()
+    for model in FIT_MODELS:
+        mb_fit_case(pgs, fk_kernel, f"fitgraph (a) half_cheetah {model}",
+                    cell_argv("half_cheetah", model), paths, timing)
+    mb_fit_case(pgs, fk_kernel, "fitgraph (a) cripple_ant pets_cadm_aug",
+                cell_argv("cripple_ant", "pets_cadm_aug"), paths, timing)
+    gc.collect()
+    ppo_graph_case(pgs, fk_kernel, PRESETS, paths, timing)
+    bench_line_case(timing)
+    print(f"fitgraph: phase {time.perf_counter() - t_phase:.1f} s; "
+          f"{json.dumps(timing)}")
+    return paths, timing
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
                  **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -2452,10 +2746,11 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port on the card.")
     parser.add_argument("--only", choices=["mesh", "matrix", "probes",
-                                           "bench", "graph"],
+                                           "bench", "graph", "fitgraph"],
                         help="run phase 1 and this phase alone (probes: "
                              "phase 12, whose snapshot they read, and 13; "
-                             "graph: phase 15 with its 1000-step eval)")
+                             "graph: phase 15 with its 1000-step eval; "
+                             "fitgraph: phase 16)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
@@ -2485,6 +2780,8 @@ def main(argv=None) -> int:
         paths = run_bench(pgs, fk_kernel, rdyn)[0]
     elif only == "graph":
         paths = run_graph(pgs, fk_kernel, PRESETS, long=True)[0]
+    elif only == "fitgraph":
+        paths = run_fitgraph(pgs, fk_kernel, PRESETS)[0]
     elif only:
         launched, snap = run_matrix(pgs, fk_kernel)
         paths = {"matrix half_cheetah cadm": launched}
@@ -2539,6 +2836,7 @@ def main(argv=None) -> int:
     k1_path += k1_bench
     k2_path += k2_bench
     paths.update(run_graph(pgs, fk_kernel, PRESETS)[0])
+    paths.update(run_fitgraph(pgs, fk_kernel, PRESETS)[0])
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),

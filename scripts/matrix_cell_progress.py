@@ -4,8 +4,12 @@
 and a model-based cell at the matrix's width can take longer than a job's
 time limit. This runs the same ``cli.matrix.main`` (same arguments, same
 files, same numbers) and prints, after every collect, fit and eval call of
-``MBTrainer``, the seconds since the start and the call's own seconds, so
-a cut run still shows how far it got and at what rate.
+``MBTrainer`` (and collect, PPO update, model fit and eval of
+``PPOTrainer``), the seconds since the start and the call's own seconds, so
+a cut run still shows how far it got and at what rate. Each stamp waits
+for the card (``torch.cuda.synchronize``): a call returns while its last
+graph replays still run, and without the wait their time would land on the
+next call's stamp.
 
     python scripts/matrix_cell_progress.py --families half_cheetah \\
         --models cadm --seeds 0
@@ -14,29 +18,36 @@ import os
 import sys
 import time
 
+import torch
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cadm_tpu_torch.cli import matrix  # noqa: E402
 from cadm_tpu_torch.train.mb_trainer import MBTrainer  # noqa: E402
+from cadm_tpu_torch.train.ppo import PPOTrainer  # noqa: E402
 
 T0 = time.time()
 
 
-def stamp(name: str) -> None:
-    orig = getattr(MBTrainer, name)
+def stamp(cls, name: str) -> None:
+    orig = getattr(cls, name)
 
     def inner(self, *args, **kwargs):
         t = time.time()
         out = orig(self, *args, **kwargs)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         print(f"{name} ended at {time.time() - T0:.1f} s "
               f"({time.time() - t:.1f} s)", flush=True)
         return out
 
-    setattr(MBTrainer, name, inner)
+    setattr(cls, name, inner)
 
 
 if __name__ == "__main__":
     # before the trainer is built: it binds its fit method at construction
     for n in ("_collect", "_fit_epochs_impl", "_fit_impl", "evaluate"):
-        stamp(n)
+        stamp(MBTrainer, n)
+    for n in ("_collect", "_ppo_update", "_fit_model", "evaluate"):
+        stamp(PPOTrainer, n)
     matrix.main()

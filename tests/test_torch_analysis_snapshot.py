@@ -84,7 +84,7 @@ def test_a_reference_snapshot_loads_without_jax(tmp_path):
             "from cadm_tpu_torch.analysis.snapshot import read_jax_snapshot\n"
             "from cadm_tpu_torch.analysis.snapshot import dyn_state_from_jax\n"
             f"s = dyn_state_from_jax(read_jax_snapshot({pkl!r}), 'cpu')\n"
-            "print(s.params['fwd'][0]['w'].shape[0], s.opt_state.count)\n")
+            "print(s.params['fwd'][0]['w'].shape[0], int(s.opt_state.count))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=ROOT))

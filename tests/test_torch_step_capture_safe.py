@@ -1,11 +1,17 @@
-"""What a CUDA-graph capture of the control step would refuse, on the CPU.
+"""What a CUDA-graph capture of the trainers' programs would refuse, on
+the CPU.
 
-A capture (train/step_graph.py) refuses a read of a tensor's value on the
-host (a sync) and a tensor made from host memory (a copy that syncs). Once
-a step has run (the graph's warm-up fills the caches of host constants),
-the step of every preset, model, planner mode and env family must do
-neither: a dispatch mode raises on the ops that would, and
-``torch.tensor``/``as_tensor``/``from_numpy`` are refused while it runs.
+A capture (train/step_graph.py, train/fit_graph.py) refuses a read of a
+tensor's value on the host (a sync) and a tensor made from host memory (a
+copy that syncs). Once a body has run (the graph's warm-up fills the
+caches of host constants), the bodies of every preset, model, planner mode
+and env family must do neither: a dispatch mode raises on the ops that
+would, and ``torch.tensor``/``as_tensor``/``from_numpy`` are refused while
+they run. The bodies: the MB trainer's planned and random collect steps,
+its eval step, a fit's update (draw, gather, symmetry augmentation,
+``model.update``) and its valid metrics; the PPO trainer's collect and eval
+steps, GAE with the flattened rollout, a minibatch step, and its model
+update and valid loss.
 """
 import dataclasses
 
@@ -14,7 +20,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cadm_tpu_torch.cli.presets import PRESETS
+from cadm_tpu_torch.models.dynamics import DynamicsState
+from cadm_tpu_torch.train import ppo
 from cadm_tpu_torch.train.step_graph import STEPS
+from tests.test_torch_fit_graph import fill
 from tests.test_torch_step_graph import TOY, start
 
 
@@ -47,6 +56,55 @@ def refuse(*args, **kwargs):
     raise AssertionError("a tensor made from host memory in the step")
 
 
+def safe(monkeypatch, body):
+    """Run ``body`` once as warm-up, then again under ``HostSyncs`` with
+    host-data tensors refused."""
+    with torch.no_grad():
+        body()
+        with monkeypatch.context() as m:
+            for fn in ("tensor", "as_tensor", "from_numpy"):
+                m.setattr(torch, fn, refuse)
+            with HostSyncs():
+                body()
+
+
+def mb_bodies(trainer, monkeypatch):
+    for kind, mode in (("collect", 0), ("eval", 2), ("random", 0)):
+        gen, dyn, carry = start(trainer, kind)
+        safe(monkeypatch, lambda: STEPS[kind](trainer, dyn, carry, gen, mode))
+    gen = torch.Generator().manual_seed(1)
+    _, _, buf, dyn = trainer.init(gen)
+    fill(buf, gen, 30)
+    dyn = trainer._refresh_norm(buf, dyn)
+    idx = trainer._draw_valid(buf, gen)
+    safe(monkeypatch, lambda: trainer._train_step(buf, gen, dyn))
+    safe(monkeypatch, lambda: trainer._valid_metrics(buf, idx, dyn))
+
+
+def ppo_bodies(trainer, monkeypatch):
+    gen = torch.Generator().manual_seed(0)
+    env_states, hists, buf, ps, dyn = trainer.init(gen)
+    weights = (ps, DynamicsState(dyn.params, dyn.norm))
+    n = trainer.cfg.n_envs
+    carry = (env_states, hists, torch.zeros(n))
+    safe(monkeypatch, lambda: ppo.collect_step(trainer, weights, carry, gen))
+    safe(monkeypatch, lambda: ppo.eval_step(trainer, weights, carry[:2], gen,
+                                            2))
+    env_states, hists, buf, traj, last = trainer._collect(
+        gen, env_states, hists, buf, ps, dyn)
+    traj.pop("ep_return")
+    safe(monkeypatch, lambda: trainer._flatten(traj, last))
+    flat = trainer._flatten(traj, last)
+    idx = torch.randperm(flat["adv"].shape[0], generator=gen)[:8]
+    safe(monkeypatch, lambda: trainer._minibatch_step(ps, flat, idx))
+    dyn = dataclasses.replace(dyn, norm=buf.norm_stats())
+    safe(monkeypatch, lambda: trainer.model.update(dyn, trainer._sample(
+        buf, trainer._draw(buf, gen, "train"))))
+    valid = trainer._draw(buf, gen, "valid")
+    safe(monkeypatch, lambda: trainer.model.loss(dyn.params, dyn.norm,
+                                                 trainer._sample(buf, valid)))
+
+
 @pytest.mark.parametrize("name,override", [
     ("halfcheetah_cadm_cem", {}),
     ("halfcheetah_cadm_cem", dict(model="stacked")),
@@ -61,17 +119,18 @@ def refuse(*args, **kwargs):
     ("slim_humanoid_cadm_cem", {}),
     ("pendulum_cadm_cem", {}),
     ("cartpole_vanilla_rs", {}),
+    ("cripple_ant_cadm_ensemble_cem", dict(symmetry_aug=True)),
+    ("hopper_ppo_cadm", dict(rollout_len=4, policy_hidden=(8, 8))),
+    ("slim_humanoid_ppo_cadm", dict(rollout_len=4, policy_hidden=(8, 8),
+                                    model="vanilla")),
 ], ids=lambda x: x if isinstance(x, str) else "-".join(
-    f"{k}={v}" for k, v in x.items() if k != "hidden") or "preset")
+    f"{k}={v}" for k, v in x.items() if k not in ("hidden", "rollout_len",
+                                                  "policy_hidden"))
+    or "preset")
 def test_step_bodies_are_capture_safe(name, override, monkeypatch):
     cfg = dataclasses.replace(PRESETS[name], **{**TOY, **override})
     trainer = cfg.build("cpu")[3]
-    for kind, mode in (("collect", 0), ("eval", 2)):
-        gen, dyn, carry = start(trainer, kind)
-        with torch.no_grad():
-            carry, _ = STEPS[kind](trainer, dyn, carry, gen, mode)  # warm-up
-            with monkeypatch.context() as m:
-                for fn in ("tensor", "as_tensor", "from_numpy"):
-                    m.setattr(torch, fn, refuse)
-                with HostSyncs():
-                    STEPS[kind](trainer, dyn, carry, gen, mode)
+    if cfg.trainer == "ppo":
+        ppo_bodies(trainer, monkeypatch)
+    else:
+        mb_bodies(trainer, monkeypatch)

@@ -115,7 +115,7 @@ def test_step_graph_matches_the_op_by_op_steps(name, kind):
     assert_same(graph.carry_out(), carry)
     assert torch.equal(gen_g.get_state(), gen.get_state())
     # the static weights are the loaded ones, not copies of the first
-    assert_same(graphs.dyn.params, new_dyn.params)
+    assert_same(graphs.weights.params, new_dyn.params)
 
 
 def test_trainer_with_step_graphs_matches_op_by_op():
@@ -139,9 +139,9 @@ def test_trainer_with_step_graphs_matches_op_by_op():
                                       np.array(list(b.values())))
     assert_same(s0.params, s1.params)
     assert torch.equal(g0, g1)
-    # collect, eval mode 0, eval mode 1: one graph each
+    # collect, eval mode 0, eval mode 1, the random collect: one graph each
     assert sorted(k[:3] for k in graphed.graphs.graphs) == [
-        ("collect", 3, 0), ("eval", 2, 0), ("eval", 2, 1)]
+        ("collect", 3, 0), ("eval", 2, 0), ("eval", 2, 1), ("random", 3, 0)]
 
 
 def test_the_graphed_path_takes_no_injected_noise():
