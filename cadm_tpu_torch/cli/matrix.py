@@ -176,7 +176,7 @@ def code_version() -> str:
     for d, dirs, files in sorted(os.walk(pkg)):
         dirs[:] = sorted(x for x in dirs if x not in ("_build", "__pycache__"))
         for f in sorted(files):
-            if f.endswith((".py", ".cu", ".npz")):
+            if f.endswith((".py", ".cu", ".xml", ".npz")):
                 with open(os.path.join(d, f), "rb") as fh:
                     h.update(os.path.relpath(os.path.join(d, f), pkg).encode())
                     h.update(fh.read())

@@ -3,9 +3,12 @@ cadm_tpu/envs/rigid_base.py).
 
 Per-episode hidden mass/damping scale draws, batched observation-only
 rewards, and stepping through the port's rigid engine
-(``cadm_tpu_torch.physics.rigid``). The Systems are read from the npz files
-under ``envs/assets/`` that ``scripts/make_torch_systems.py`` writes from the
-MJCF assets, so the port needs no MJCF parser.
+(``cadm_tpu_torch.physics.rigid``). The Systems are compiled from the port's
+own copies of the MJCF assets under ``envs/assets/`` by
+``physics/rigid/mjcf.system_from_mjcf``, as the reference compiles them
+through mujoco. The npz files beside them are mujoco's compilation of the
+same assets (``scripts/make_torch_systems.py``), which the tests and
+``chip_smoke.py`` hold the compiler to (``npz_system``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from cadm_tpu_torch.core.types import PyTree
 from cadm_tpu_torch.envs.base import Env
 from cadm_tpu_torch.envs.ranges import canonical
 from cadm_tpu_torch.physics.rigid import dynamics as rdyn
+from cadm_tpu_torch.physics.rigid.mjcf import system_from_mjcf
 from cadm_tpu_torch.physics.rigid.system import System
 
 Tensor = torch.Tensor
@@ -28,11 +32,23 @@ ASSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 ASSETS = ("half_cheetah", "hopper", "ant", "slim_humanoid")
 
 
+def _asset_path(asset: str, ext: str) -> str:
+    name = asset[:-4] if asset.endswith(".xml") else asset
+    return os.path.join(ASSET_DIR, name + ext)
+
+
 @lru_cache(maxsize=None)
 def load_system(asset: str) -> System:
-    """The System of an asset (e.g. "half_cheetah") from its npz file."""
-    name = asset[:-4] if asset.endswith(".xml") else asset
-    with np.load(os.path.join(ASSET_DIR, name + ".npz")) as z:
+    """The System of an asset (e.g. "half_cheetah"), compiled from its
+    MJCF file."""
+    with open(_asset_path(asset, ".xml")) as f:
+        return system_from_mjcf(f.read())
+
+
+def npz_system(asset: str) -> System:
+    """The System mujoco compiled from the same asset, read from its npz
+    file (the record the compiler is held to)."""
+    with np.load(_asset_path(asset, ".npz")) as z:
         data = {k: z[k] for k in z.files}
     kwargs = {}
     for f in dataclasses.fields(System):

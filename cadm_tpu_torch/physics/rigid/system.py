@@ -5,8 +5,9 @@ A ``System`` is immutable host-side data describing topology, geometry,
 inertia, joints, actuators and collision geoms. The port's engine reads it
 when it builds its per-device constant tensors and the K2 kernel's table;
 per-episode randomized physics (mass/damping scales, actuator masks) stay
-tensors. The port loads Systems from the npz files under ``envs/assets/``
-(see ``envs/rigid_base.load_system``) and has no MJCF parser.
+tensors. The port compiles Systems from the MJCF assets under
+``envs/assets/`` with its own compiler (``physics/rigid/mjcf.py``; see
+``envs/rigid_base.load_system``).
 
 Joint model follows MuJoCo semantics: each body owns 0+ joints applied
 sequentially inside the body frame; supported types are FREE (3

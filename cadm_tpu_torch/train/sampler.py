@@ -5,17 +5,27 @@ and ``ModelSampleProcessor.process_samples``.
 ``MBTrainer`` and ``PPOTrainer`` collect inside their own loops; this is the
 reference's ``samplers/sampler.py`` surface for code written against it. The
 envs step as one batch on the env's device; the paths come back as numpy.
+The reference jits its rollout (a ``lax.scan``) anew on each call; on a
+CUDA device each call here captures its control step (the action, ``Env.step``,
+the history push and wipe) as one CUDA graph (``train/step_graph.py``),
+replays it once a step and drops it at return, so the policy runs on its
+weights as they are at the call. The action is the uniform draw, the call's
+injected row (copied into the graph's static input) or the policy's. A
+policy that a capture refuses raises: pass ``graph=False`` to run op by op,
+as the CPU always does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from cadm_tpu_torch.core.rng import rand
 from cadm_tpu_torch.core.types import History, tree_map, tree_where
 from cadm_tpu_torch.envs.base import Env
-from cadm_tpu_torch.core.rng import rand
+from cadm_tpu_torch.train.step_graph import Graph, Graphs
 
 Tensor = torch.Tensor
 # policy: (obs (E, obs), histories, generator) -> actions (E, act)
@@ -24,13 +34,49 @@ PATH_KEYS = ("observations", "actions", "next_observations", "rewards",
              "dones")
 
 
+def _transition(sampler, carry, act, g):
+    """Step the envs under ``act`` → ((states, histories), one step's
+    paths); the histories are wiped where an episode ends."""
+    states, hists = carry
+    prev_obs = states.obs
+    states, obs, reward, done = sampler.env.step(states, act, g, sampler.mode)
+    pushed = hists.push(prev_obs, obs - prev_obs, act)
+    hists = tree_where(done, tree_map(torch.zeros_like, pushed), pushed)
+    return (states, hists), (prev_obs, act, obs, reward, done)
+
+
+def random_step(sampler, carry, g):
+    """A step under uniform actions in [-1, 1]."""
+    n = carry[0].obs.shape[0]
+    return _transition(sampler, carry,
+                       2.0 * rand(g, n, sampler.env.act_dim) - 1.0, g)
+
+
+def injected_step(sampler, carry, g, act):
+    """A step under the given actions."""
+    return _transition(sampler, carry, act, g)
+
+
+def policy_step(policy, sampler, carry, g):
+    """A step under ``policy``'s actions."""
+    return _transition(sampler, carry, policy(carry[0].obs, carry[1], g), g)
+
+
 class Sampler:
     def __init__(self, env: Env, n_envs: int, history_k: int = 10,
-                 mode: int = 0):
+                 mode: int = 0, graph: bool = True):
+        """``graph``: on a CUDA device, replay each control step from a
+        CUDA graph captured for the call (else, and on the CPU, run it op
+        by op)."""
         self.env = env
         self.n_envs = n_envs
         self.history_k = history_k
         self.mode = mode
+        self.graph = graph and env.device.type == "cuda"
+        # every call's capture runs on this stream, so cuBLAS's workspace
+        # for it is made once
+        self.stream = (torch.cuda.Stream(device=env.device) if self.graph
+                       else None)
 
     @torch.no_grad()
     def obtain_samples(self, gen: torch.Generator, n_steps: int,
@@ -46,25 +92,39 @@ class Sampler:
         numbers). The policy's histories are wiped where an episode ends.
         """
         env, n = self.env, self.n_envs
-        states = env.reset(gen, n, self.mode)
-        hists = History.zeros(n, self.history_k, env.obs_dim, env.act_dim,
-                              env.device)
-        paths = {k: [] for k in PATH_KEYS}
-        for t in range(n_steps):
-            if actions is not None:
-                act = actions[t]
-            elif random or policy is None:
-                act = 2.0 * rand(gen, n, env.act_dim) - 1.0
-            else:
-                act = policy(states.obs, hists, gen)
-            prev_obs = states.obs
-            states, obs, reward, done = env.step(states, act, gen, self.mode)
-            pushed = hists.push(prev_obs, obs - prev_obs, act)
-            hists = tree_where(done, tree_map(torch.zeros_like, pushed),
-                               pushed)
-            for k, v in zip(PATH_KEYS, (prev_obs, act, obs, reward, done)):
-                paths[k].append(v)
-        return {k: torch.stack(v).cpu().numpy() for k, v in paths.items()}
+        carry = (env.reset(gen, n, self.mode),
+                 History.zeros(n, self.history_k, env.obs_dim, env.act_dim,
+                               env.device))
+        if actions is not None:
+            fn = injected_step
+        elif random or policy is None:
+            fn = random_step
+        else:
+            fn = functools.partial(policy_step, policy)
+
+        def inputs(t):
+            return () if actions is None else (actions[t],)
+
+        rows = []
+        if not self.graph:
+            for t in range(n_steps):
+                carry, out = fn(self, carry, gen, *inputs(t))
+                rows.append(out)
+        else:
+            # capture=False (a CPU env told to graph) runs the step on the
+            # graph's static buffers without capturing
+            graph = Graph(Graphs(env.device, env.device.type == "cuda",
+                                 self.stream),
+                          lambda c, *x: fn(self, c, gen, *x), carry, gen,
+                          env_steps=True)
+            try:
+                for t in range(n_steps):
+                    # the next replay overwrites the static output
+                    rows.append(tree_map(torch.clone, graph(*inputs(t))))
+            finally:
+                graph.reset()
+        return {k: torch.stack(v).cpu().numpy()
+                for k, v in zip(PATH_KEYS, zip(*rows))}
 
 
 class ModelSampleProcessor:

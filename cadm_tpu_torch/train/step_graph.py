@@ -48,15 +48,16 @@ a mesh, each update and valid estimate of a fit, GAE and each PPO
 minibatch step. On a mesh the steps keep their graphs (their gathers are
 outside the step), while the fit and the PPO update run op by op: their
 gathers and sums go through ``torch.distributed``, which a capture cannot
-hold. The one jitted program of the reference still run op by op is the
-``Sampler``'s rollout (``train/sampler.py``), which no trainer calls. The
-CPU and ``graph=False`` keep the op-by-op loop; a ``StepGraphs`` made with
-``capture=False`` runs its bodies on its static buffers without capturing
-(the CPU tests check the bookkeeping that way).
+hold. The ``Sampler``'s rollout (``train/sampler.py``) captures its
+control step as a ``Graph`` on each call. The CPU and ``graph=False`` keep
+the op-by-op loop; a ``StepGraphs`` made with ``capture=False`` runs its
+bodies on its static buffers without capturing (the CPU tests check the
+bookkeeping that way).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Dict, Optional
 
 import torch
@@ -152,13 +153,15 @@ class Graphs:
     """One memory pool and one capture stream, shared by the graphs of a
     trainer (none, and no capture, with ``capture=False``). The graphs never
     run at once, and what one leaves for another lives in static buffers
-    outside the pool."""
+    outside the pool. ``stream``: the capture stream (a new one if None);
+    cuBLAS keeps a workspace for each stream it has run on."""
 
-    def __init__(self, device, capture: bool = True):
+    def __init__(self, device, capture: bool = True,
+                 stream: Optional[torch.cuda.Stream] = None):
         self.pool = self.stream = None
         if capture:
             self.pool = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream(device=device)
+            self.stream = stream or torch.cuda.Stream(device=device)
 
 
 class Graph:
@@ -219,8 +222,17 @@ class Graph:
         if gen is not None:
             graph.register_generator_state(gen)
         before = dict(_build.captured)
-        with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
-            self._run()
+        # no cyclic garbage collection inside the capture: a dropped trainer
+        # holds its graphs in a reference cycle, and destroying a CUDA graph
+        # while another is captured invalidates that capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.owner.pool, stream=stream):
+                self._run()
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: n - before[k] for k, n in _build.captured.items()}
         self.graph = graph
 

@@ -163,18 +163,35 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    bit for bit, or a float within GRAPH_RTOL relative (printed); ms a step
    or an update both ways; K1/K2 launches of every collect and eval.
 
+17. the MJCF compiler (``cadm_tpu_torch/physics/rigid/mjcf.py``) where
+   mujoco is not installed: (a) the four assets compiled from the port's
+   XML copies, ms each; (b) each compiled System against mujoco's recorded
+   compilation (``envs/assets/*.npz``): int and bool fields equal, the
+   float64 elements that differ counted with the largest difference, every
+   field's float32 cast, the engine's float32 tensors
+   (``kinematics._sys_tensors``) and K2's packed table bit for bit; (c) 50
+   random-action control steps of each family at its phase-2 batch from one
+   seed on an env built on the compiled System and on one built on the npz
+   System: qpos and qvel bit for bit; (d) the ``Sampler``'s rollout of 64
+   steps at 256 half_cheetahs (32-step episodes) under uniform draws,
+   injected actions and a linear policy whose weights are rebound between
+   calls, graphed against ``Sampler(graph=False)``, two calls each (each
+   graphed call captures its own graph): paths and generator state bit for
+   bit, ms a step each way. K1/K2 launches = frame_skip × (steps + warm-up
+   steps) on every path.
+
 The trainers' collect and eval steps (MB: random and planned; PPO) are
 graph replays on every path, and off a mesh so are the fits' updates and
 PPO's update; the steps a graph runs as warm-up before its capture launch
 K1/K2 too, so every gate expects frame_skip × (control steps + warm-up
 steps). Phase 11's meshes fit op by op, by the trainers' rule. Each path of
-phases 7–16 sets the launch counts (and the warm-up count) to 0 before it
+phases 7–17 sets the launch counts (and the warm-up count) to 0 before it
 runs and reads them after (in its rank's process on a mesh).
 
 ``python3 chip_smoke.py --only mesh`` (``--only matrix``, ``--only bench``,
-``--only graph``, ``--only fitgraph``) runs phase 1 and phase 11 (12, 14,
-15, 16) alone, ``--only probes`` phases 1, 12 and 13, and prints each
-path's launches (no JSON lines).
+``--only graph``, ``--only fitgraph``, ``--only mjcf``) runs phase 1 and
+phase 11 (12, 14, 15, 16, 17) alone, ``--only probes`` phases 1, 12 and
+13, and prints each path's launches (no JSON lines).
 
 The last three lines are a JSON object describing the kernels (with each
 kernel's bound: the least time the card could take for the same work), the
@@ -2732,6 +2749,211 @@ def run_fitgraph(pgs, fk_kernel, PRESETS):
     return paths, timing
 
 
+# ------------------------------------------ phase 17: the MJCF compiler --
+MJCF_STEPS = 50           # random-action env steps, compiled vs npz System
+SAMPLER_ENVS, SAMPLER_STEPS = 256, 64   # the graphed Sampler's rollout
+SAMPLER_HORIZON = 32      # episodes end twice inside the rollout
+
+
+def bits_differ(a, b) -> int:
+    """Elements of two float32 tensors (or arrays) whose bits differ."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def compare_systems(asset, port, ref):
+    """Every field of the compiled System against mujoco's recorded one:
+    ints and bools equal, float64 differences counted, float32 casts bit
+    for bit; then the engine's float32 tensors (``kinematics._sys_tensors``)
+    and K2's packed table, byte for byte. Returns (float64 elements that
+    differ, largest |difference|)."""
+    from cadm_tpu_torch.ops import fk_kernel
+    from cadm_tpu_torch.physics.rigid import kinematics
+
+    n64, worst = 0, 0.0
+    for f in dataclasses.fields(ref):
+        a, b = np.asarray(getattr(port, f.name)), np.asarray(
+            getattr(ref, f.name))
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"mjcf {asset} {f.name}: {a.dtype} "
+                                 f"{a.shape} vs {b.dtype} {b.shape}")
+        if a.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"mjcf {asset} {f.name} differs")
+            continue
+        n64 += int((a.view(np.uint64) != b.view(np.uint64)).sum())
+        if a.size:
+            worst = max(worst, float(np.abs(a - b).max()))
+        if bits_differ(a.astype(np.float32), b.astype(np.float32)):
+            raise AssertionError(f"mjcf {asset} {f.name}: float32 casts differ")
+    dev = torch.device("cuda")
+    tp, tr = (kinematics._sys_tensors(s, dev, torch.float32)
+              for s in (port, ref))
+    f32 = {k: bits_differ(getattr(tp, k), getattr(tr, k)) for k in vars(tr)}
+    table = bytes(fk_kernel.pack_system(port)) == bytes(
+        fk_kernel.pack_system(ref))
+    print(f"mjcf {asset}: compiled vs npz: {n64} float64 elements differ "
+          f"(largest |difference| {worst:.3e}); float32 casts of every field "
+          f"bit for bit; engine tensors differing elements {sum(f32.values())}"
+          f" over {len(f32)} tensors; K2 table bytes equal: {table}")
+    if any(f32.values()) or not table:
+        raise AssertionError(f"mjcf {asset}: float32 constants differ: "
+                             f"{f32}, table equal {table}")
+    return n64, worst
+
+
+def mjcf_steps(pgs, fk_kernel, name, n, sys_):
+    """``MJCF_STEPS`` random-action control steps of ``n`` envs of family
+    ``name`` on ``sys_`` from seed SEED → (qpos, qvel, launches)."""
+    from cadm_tpu_torch import envs
+
+    env = envs.make(name, device="cuda")
+    env.sys = sys_
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    launched = []
+    with counted(pgs, fk_kernel, launched):
+        states = env.reset(gen, n)
+        low, high = env.action_limits()
+        for _ in range(MJCF_STEPS):
+            u = torch.rand(n, env.act_dim, generator=gen, device="cuda")
+            states = env.step(states, low + (high - low) * u, gen)[0]
+        torch.cuda.synchronize()
+    check_launches(f"mjcf {name} ({n} envs)", launched, env.frame_skip,
+                   MJCF_STEPS)
+    return states.phys.qpos, states.phys.qvel, launched
+
+
+class LinearPolicy:
+    """tanh(obs @ w + the window's summed Δobs + a uniform draw): a policy
+    whose weight tensor ``w`` the caller rebinds between calls."""
+
+    def __init__(self, act_dim):
+        self.act_dim, self.w = act_dim, None
+
+    def __call__(self, obs, hists, g):
+        from cadm_tpu_torch.core.rng import rand
+
+        return torch.tanh(obs @ self.w + hists.dobs.sum((1, 2))[:, None]
+                          + rand(g, obs.shape[0], self.act_dim))
+
+
+def sampler_pair(pgs, fk_kernel, paths):
+    """(d) the Sampler's rollout of SAMPLER_STEPS steps at SAMPLER_ENVS
+    half_cheetahs under each action source (uniform draws, injected
+    actions, a policy whose weights are rebound between calls), op by op
+    and graphed, twice each from one generator (each graphed call captures
+    its own graph): paths and generator state bit for bit; ms a step each
+    way."""
+    from cadm_tpu_torch import envs
+    from cadm_tpu_torch.train.sampler import Sampler
+
+    env = envs.make("half_cheetah", device="cuda", horizon=SAMPLER_HORIZON)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    actions = 2 * torch.rand(2, SAMPLER_STEPS, SAMPLER_ENVS, env.act_dim,
+                             generator=g, device="cuda") - 1
+    weights = 0.3 * torch.randn(2, env.obs_dim, env.act_dim, generator=g,
+                                device="cuda")
+    runs, ms = {}, {}
+    for source in ("random", "actions", "policy"):
+        for way, graph in (("op by op", False), ("graphed", True)):
+            sampler = Sampler(env, SAMPLER_ENVS, graph=graph)
+            if sampler.graph != graph:
+                raise AssertionError(f"Sampler(graph={graph}) on the card")
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            policy = LinearPolicy(env.act_dim)
+            for call in range(2):
+                policy.w = weights[call].clone()  # rebound between calls
+                kw = {"random": dict(random=True),
+                      "actions": dict(actions=actions[call]),
+                      "policy": dict(policy=policy)}[source]
+                launched = []
+                held = torch.cuda.memory_allocated()
+                with counted(pgs, fk_kernel, launched):
+                    out, dt = sync_timed(lambda: sampler.obtain_samples(
+                        gen, SAMPLER_STEPS, **kw))
+                tag = f"mjcf (d) sampler {source} {way} call {call}"
+                held = torch.cuda.memory_allocated() - held
+                print(f"{tag}: device memory held after the call {held} "
+                      f"bytes")
+                # a later call keeps nothing of its graph (the first may
+                # leave cuBLAS's workspace for the Sampler's capture stream)
+                if call and held > 2 ** 20:
+                    raise AssertionError(f"{tag} held {held} bytes")
+                check_launches(tag, launched, env.frame_skip, SAMPLER_STEPS)
+                paths[tag] = launched
+                runs[(source, way, call)] = (out, gen.get_state())
+                ms[f"{source} {way} call {call}"] = 1e3 * dt / SAMPLER_STEPS
+        for call in range(2):
+            (e, eg), (g_, gg) = (runs[(source, w, call)]
+                                 for w in ("op by op", "graphed"))
+            graph_compare(f"mjcf (d) sampler {source} call {call}", [
+                ("paths", {k: torch.from_numpy(v) for k, v in g_.items()},
+                 {k: torch.from_numpy(v) for k, v in e.items()}),
+                ("generator state", gg, eg)])
+            if int(e["dones"].sum()) != SAMPLER_ENVS * (
+                    SAMPLER_STEPS // SAMPLER_HORIZON):
+                raise AssertionError(f"sampler {source} call {call}: "
+                                     f"{int(e['dones'].sum())} episodes ended")
+        if source == "policy" and np.array_equal(
+                runs[(source, "op by op", 0)][0]["actions"],
+                runs[(source, "op by op", 1)][0]["actions"]):
+            raise AssertionError("the rebound policy weights changed nothing")
+    print(f"mjcf (d) sampler at {SAMPLER_ENVS} half_cheetah envs, "
+          f"{SAMPLER_STEPS} steps: ms a step " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ms.items())
+          + " (each graphed call holds its warm-up and capture)")
+    return ms
+
+
+def run_mjcf(pgs, fk_kernel):
+    """Phase 17: (a) compile the port's four MJCF assets (no mujoco on this
+    machine), ms each; (b) each compiled System against mujoco's recorded
+    compilation (its npz): float64 differences counted, float32 constants
+    bit for bit; (c) MJCF_STEPS random-action steps of each family at its
+    phase-2 batch on the compiled and on the npz System: qpos/qvel bit for
+    bit; (d) the graphed Sampler against op by op. Returns each path's
+    launches and the timings."""
+    from cadm_tpu_torch.envs.rigid_base import ASSET_DIR, ASSETS, npz_system
+    from cadm_tpu_torch.physics.rigid.mjcf import system_from_mjcf
+
+    t_phase = time.perf_counter()
+    paths, timing = {}, {"compile_ms": {}}
+    compiled = {}
+    for asset in ASSETS:
+        with open(os.path.join(ASSET_DIR, asset + ".xml")) as f:
+            xml = f.read()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            compiled[asset] = system_from_mjcf(xml)
+            times.append(1e3 * (time.perf_counter() - t0))
+        timing["compile_ms"][asset] = times
+        print(f"mjcf (a) {asset}: compiled in "
+              f"{', '.join(f'{t:.2f}' for t in times)} ms (3 compiles)")
+    timing["float64_differ"] = {
+        a: compare_systems(a, compiled[a], npz_system(a)) for a in ASSETS}
+    for name, n in MAIN_PATH_SYSTEMS:
+        asset = "ant" if name == "cripple_ant" else name
+        ours = mjcf_steps(pgs, fk_kernel, name, n, compiled[asset])
+        ref = mjcf_steps(pgs, fk_kernel, name, n, npz_system(asset))
+        paths[f"mjcf (c) {name} compiled"] = ours[2]
+        paths[f"mjcf (c) {name} npz"] = ref[2]
+        differ = [bits_differ(a, b) for a, b in zip(ours[:2], ref[:2])]
+        finite = all(bool(torch.isfinite(x).all()) for x in ours[:2])
+        print(f"mjcf (c) {name} ({n} envs, {MJCF_STEPS} steps): compiled vs "
+              f"npz System, qpos/qvel elements whose bits differ {differ}; "
+              f"finite {finite}")
+        if any(differ) or not finite:
+            raise AssertionError(f"mjcf (c) {name}: {differ}, finite {finite}")
+    timing["sampler_ms"] = sampler_pair(pgs, fk_kernel, paths)
+    print(f"mjcf: phase {time.perf_counter() - t_phase:.1f} s")
+    return paths, timing
+
+
 def kernel_entry(name, source, replaces, launches, by_path, err, main,
                  **extra):
     return {"name": name, "route": "cuda", "source": source,
@@ -2746,11 +2968,12 @@ def kernel_entry(name, source, replaces, launches, by_path, err, main,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Drive the port on the card.")
     parser.add_argument("--only", choices=["mesh", "matrix", "probes",
-                                           "bench", "graph", "fitgraph"],
+                                           "bench", "graph", "fitgraph",
+                                           "mjcf"],
                         help="run phase 1 and this phase alone (probes: "
                              "phase 12, whose snapshot they read, and 13; "
                              "graph: phase 15 with its 1000-step eval; "
-                             "fitgraph: phase 16)")
+                             "fitgraph: phase 16; mjcf: phase 17)")
     only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is "
@@ -2782,6 +3005,8 @@ def main(argv=None) -> int:
         paths = run_graph(pgs, fk_kernel, PRESETS, long=True)[0]
     elif only == "fitgraph":
         paths = run_fitgraph(pgs, fk_kernel, PRESETS)[0]
+    elif only == "mjcf":
+        paths = run_mjcf(pgs, fk_kernel)[0]
     elif only:
         launched, snap = run_matrix(pgs, fk_kernel)
         paths = {"matrix half_cheetah cadm": launched}
@@ -2837,6 +3062,7 @@ def main(argv=None) -> int:
     k2_path += k2_bench
     paths.update(run_graph(pgs, fk_kernel, PRESETS)[0])
     paths.update(run_fitgraph(pgs, fk_kernel, PRESETS)[0])
+    paths.update(run_mjcf(pgs, fk_kernel)[0])
 
     def launches(i):
         return (sum(v[i] for v in paths.values()),

@@ -1,10 +1,14 @@
-"""Write the rigid Systems of the four MJCF assets as npz data for the port.
+"""Record mujoco's compilation of the four MJCF assets as npz data.
 
-``cadm_tpu_torch`` runs where ``mujoco`` is not installed, so it cannot parse
-the MJCF assets itself. This script parses them with the JAX package's
-``system_from_mjcf`` (the same call ``cadm_tpu.envs.rigid_base.load_system``
-makes) and stores every ``System`` field, array or scalar, in one
-``.npz`` per asset under ``cadm_tpu_torch/envs/assets/``.
+``cadm_tpu_torch`` compiles its Systems from its own copies of the MJCF
+assets with its own compiler (``cadm_tpu_torch/physics/rigid/mjcf.py``), as
+it runs where ``mujoco`` is not installed. This script compiles the assets
+with the JAX package's ``system_from_mjcf`` (through mujoco, the same call
+``cadm_tpu.envs.rigid_base.load_system`` makes) and stores every ``System``
+field, array or scalar, in one ``.npz`` per asset under
+``cadm_tpu_torch/envs/assets/``: the record that ``tests/test_torch_mjcf.py``
+and ``chip_smoke.py`` (phase 17, on a machine without mujoco) hold the
+port's compiler to (``cadm_tpu_torch.envs.rigid_base.npz_system``).
 
 Run from the repository root after an asset or ``System`` changes:
 

@@ -404,3 +404,100 @@ def test_a_replay_adds_its_recorded_launches(dev):
     for k in range(2, 5):
         graph()
         assert pgs.launches - before[0] == env.frame_skip * (warm + k)
+
+
+@pytest.mark.parametrize("source", ["random", "actions", "policy"])
+def test_sampler_replays_equal_the_op_by_op_rollout(dev, source):
+    """The Sampler's rollout through auto-resets, each step a replay of the
+    graph captured for the call, against ``Sampler(graph=False)`` from the
+    same generator state (chip_smoke.py phase 17 at toy width), two calls
+    each with the policy's weight tensor rebound between them: paths and
+    generator state bit for bit or within GRAPH_RTOL, so no call replays
+    the weights an earlier call captured; K1/K2 launched frame_skip × (the
+    steps + the call's warm-up steps); the second call leaves no device
+    memory held."""
+    from chip_smoke import graph_compare
+    from cadm_tpu_torch import envs
+    from cadm_tpu_torch.core.rng import rand
+    from cadm_tpu_torch.train import step_graph
+    from cadm_tpu_torch.train.sampler import Sampler
+
+    env = envs.make("half_cheetah", device=dev, horizon=5)
+    n, steps = 8, 12
+    g = torch.Generator(device=dev).manual_seed(1)
+    actions = 2 * torch.rand(2, steps, n, env.act_dim, device=dev,
+                             generator=g) - 1
+    weights = torch.randn(2, env.obs_dim, env.act_dim, device=dev,
+                          generator=g)
+
+    class Policy:
+        w = None
+
+        def __call__(self, obs, hists, g):
+            return torch.tanh(obs @ self.w + hists.dobs.sum((1, 2))[:, None]
+                              + rand(g, obs.shape[0], env.act_dim))
+
+    runs = []
+    for graph in (False, True):
+        sampler = Sampler(env, n, history_k=3, graph=graph)
+        assert sampler.graph == graph
+        gen = torch.Generator(device=dev).manual_seed(0)
+        policy = Policy()
+        for call in range(2):
+            policy.w = weights[call].clone()  # rebound, not written in place
+            kw = {"random": dict(random=True),
+                  "actions": dict(actions=actions[call]),
+                  "policy": dict(policy=policy)}[source]
+            before = (pgs.launches, fk_kernel.launches,
+                      step_graph.warmup_steps, torch.cuda.memory_allocated())
+            paths = sampler.obtain_samples(gen, steps, **kw)
+            torch.cuda.synchronize()
+            if call:  # the call's graph and buffers are gone
+                assert torch.cuda.memory_allocated() - before[3] <= 2 ** 20
+            warm = step_graph.warmup_steps - before[2]
+            assert warm == (step_graph.WARMUP_STEPS if graph else 0)
+            assert (pgs.launches - before[0], fk_kernel.launches - before[1]) \
+                == (env.frame_skip * (steps + warm),) * 2
+            runs.append((paths, gen.get_state()))
+    for call in range(2):
+        (ep, eg), (gp, gg) = runs[call], runs[2 + call]
+        assert ep["dones"].sum() == 2 * n
+        graph_compare(f"sampler {source} call {call}", [
+            ("paths", {k: torch.from_numpy(v) for k, v in gp.items()},
+             {k: torch.from_numpy(v) for k, v in ep.items()}),
+            ("generator state", gg, eg)])
+
+
+def test_a_dropped_graph_is_not_freed_inside_a_capture(dev):
+    """A trainer holds its graphs in a reference cycle, so a dropped one
+    is freed by the cyclic collector, whenever it runs; a CUDA graph
+    destroyed while another is captured invalidates that capture.
+    Here a dead cycle holds a captured graph and the next capture's body
+    allocates enough to set the collector off: the capture must hold."""
+    import gc
+
+    from cadm_tpu_torch.train.step_graph import Graph, Graphs
+
+    class Holder:
+        pass
+
+    gc.collect()   # the dead cycle below starts in the youngest generation
+    dead = Holder()
+    dead.cycle = dead
+    dead.graph = Graph(Graphs(dev), lambda c: (c + 1, c * 2),
+                       torch.zeros(4, device=dev), None)
+    dead.graph()
+    del dead
+
+    def body(c):
+        if torch.cuda.is_current_stream_capturing():
+            junk = [[] for _ in range(100_000)]  # noqa: F841
+        return c + 1, c * 2
+
+    graph = Graph(Graphs(dev), body, torch.zeros(4, device=dev), None)
+    for k in range(3):
+        out = graph()
+    torch.cuda.synchronize()
+    assert graph.graph is not None
+    # the warm-up's steps are undone; the third replay reads a carry of 2
+    assert out.tolist() == [4.0] * 4

@@ -7,10 +7,11 @@ modules and ``cadm_tpu`` are blocked in ``sys.modules``, every module of
 ``cadm_tpu_torch`` is imported (the replay ring, the CLI, the logger, the
 baselines, the checkpointer, the trajectory sink, the analytic envs, the
 wrapper, the Sampler, the PPO trainer, the mesh, the result-matrix
-runner and renderer, the snapshot analyses, the bench and the flagship
-forward step among them), the four
-Systems are loaded from their npz files, the acting slice runs at toy
-width on the CPU,
+runner and renderer, the snapshot analyses, the bench, the flagship
+forward step and the MJCF compiler among them), the four Systems are
+compiled from the port's MJCF assets (equal to their npz records) and the
+four rigid envs built on them, the acting slice runs at toy width on the
+CPU,
 toy ReBAL and GrBAL runs train, checkpoint and resume, a bare config builds
 the reference's default cartpole, and a toy PPO + CaDM run and a Sampler
 run on the CPU.
@@ -54,16 +55,25 @@ SCRIPT = textwrap.dedent("""
             "cadm_tpu_torch.analysis.probe_ranges",
             "cadm_tpu_torch.analysis.ab_ts1",
             "cadm_tpu_torch.bench", "cadm_tpu_torch.graft_entry",
+            "cadm_tpu_torch.physics.rigid.mjcf",
             } <= names, names
     for name in sorted(names):
         importlib.import_module(name)
 
+    import numpy as np
+    from cadm_tpu_torch import envs
     from cadm_tpu_torch.cli.presets import PRESETS
-    from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
+    from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system, npz_system
 
     sizes = {a: (load_system(a).nb, load_system(a).nv) for a in ASSETS}
     assert sizes == {"half_cheetah": (8, 9), "hopper": (5, 6), "ant": (14, 14),
                      "slim_humanoid": (14, 23)}, sizes
+    for a in ASSETS:
+        env = envs.make(a, device="cpu")
+        assert env.sys is load_system(a), a
+        for f in dataclasses.fields(env.sys):
+            assert np.array_equal(np.asarray(getattr(env.sys, f.name)),
+                                  np.asarray(getattr(npz_system(a), f.name))), f.name
 
     cfg = dataclasses.replace(
         PRESETS["halfcheetah_cadm_cem"], hidden=(32, 32), n_candidates=16,

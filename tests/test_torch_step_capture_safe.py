@@ -11,7 +11,8 @@ they run. The bodies: the MB trainer's planned and random collect steps,
 its eval step, a fit's update (draw, gather, symmetry augmentation,
 ``model.update``) and its valid metrics; the PPO trainer's collect and eval
 steps, GAE with the flattened rollout, a minibatch step, and its model
-update and valid loss.
+update and valid loss; the ``Sampler``'s step under uniform draws,
+injected actions and a policy.
 """
 import dataclasses
 
@@ -19,9 +20,12 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from cadm_tpu_torch import envs
 from cadm_tpu_torch.cli.presets import PRESETS
+from cadm_tpu_torch.core.rng import rand
+from cadm_tpu_torch.core.types import History
 from cadm_tpu_torch.models.dynamics import DynamicsState
-from cadm_tpu_torch.train import ppo
+from cadm_tpu_torch.train import ppo, sampler as sampler_mod
 from cadm_tpu_torch.train.step_graph import STEPS
 from tests.test_torch_fit_graph import fill
 from tests.test_torch_step_graph import TOY, start
@@ -134,3 +138,22 @@ def test_step_bodies_are_capture_safe(name, override, monkeypatch):
         ppo_bodies(trainer, monkeypatch)
     else:
         mb_bodies(trainer, monkeypatch)
+
+
+def test_sampler_step_bodies_are_capture_safe(monkeypatch):
+    env = envs.make("half_cheetah", device="cpu")
+    sampler = sampler_mod.Sampler(env, 2, history_k=3)
+    gen = torch.Generator().manual_seed(0)
+    carry = (env.reset(gen, 2),
+             History.zeros(2, 3, env.obs_dim, env.act_dim, env.device))
+    act = torch.full((2, env.act_dim), 0.3)
+
+    def policy(obs, hists, g):
+        return torch.tanh(obs[:, :env.act_dim] + hists.dobs.sum((1, 2))[:, None]
+                          + rand(g, obs.shape[0], env.act_dim))
+
+    safe(monkeypatch, lambda: sampler_mod.random_step(sampler, carry, gen))
+    safe(monkeypatch, lambda: sampler_mod.injected_step(sampler, carry, gen,
+                                                        act))
+    safe(monkeypatch, lambda: sampler_mod.policy_step(policy, sampler, carry,
+                                                      gen))

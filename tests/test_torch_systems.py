@@ -1,9 +1,12 @@
-"""The port's committed System npz files equal what MJCF parsing gives.
+"""The port's committed System npz files equal mujoco's compilation of the
+MJCF assets.
 
-``cadm_tpu_torch`` cannot parse MJCF (no mujoco where it runs), so
-``scripts/make_torch_systems.py`` stores every System field per asset; this
-test fails if an asset, the parser or ``System`` changed without the npz
-files being regenerated.
+The npz files (``scripts/make_torch_systems.py``) record every System field
+that the JAX package's ``system_from_mjcf`` reads from mujoco, per asset.
+They are what the port's own MJCF compiler is held to where mujoco is not
+installed (``tests/test_torch_mjcf.py``, ``chip_smoke.py`` phase 17); this
+test fails if an asset, the reference's parser or ``System`` changed
+without the npz files being regenerated.
 """
 import dataclasses
 import os
@@ -12,7 +15,7 @@ import numpy as np
 import pytest
 
 from cadm_tpu.physics.rigid.mjcf import system_from_mjcf
-from cadm_tpu_torch.envs.rigid_base import ASSETS, load_system
+from cadm_tpu_torch.envs.rigid_base import ASSETS, npz_system
 
 ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "cadm_tpu", "envs",
                          "assets")
@@ -22,7 +25,7 @@ ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "cadm_tpu", "envs",
 def test_npz_system_equals_mjcf(asset):
     with open(os.path.join(ASSET_DIR, asset + ".xml")) as f:
         ref = system_from_mjcf(f.read())
-    port = load_system(asset)
+    port = npz_system(asset)
     names = [f.name for f in dataclasses.fields(ref)]
     assert names == [f.name for f in dataclasses.fields(port)]
     for name in names:
