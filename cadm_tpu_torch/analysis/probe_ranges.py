@@ -23,6 +23,7 @@ import argparse
 import dataclasses
 import json
 import os
+import time
 from typing import Optional
 
 import torch
@@ -120,18 +121,24 @@ def scale_sweep(env, n_envs: int, policies: dict,
                 tag: str = "") -> dict:
     """{scale: {policy: return mean/std, velocity return mean}} of
     ``make_rollout`` under each of ``policies`` at each scale, each scale's
-    generator seeded as the script's key; ``tag`` leads the log lines."""
+    generator seeded as the script's key; ``tag`` leads the log lines.
+    Beside the script's keys each record holds ``n``, the per-env
+    ``returns`` and the rollout's ``wall_s``."""
     out = {}
     for pname, pol in policies.items():
         run = make_rollout(env, n_envs, pol, horizon)
         for scale in scales:
             gen = torch.Generator(device=env.device).manual_seed(
                 scale_seed(scale))
+            t0 = time.perf_counter()
             ret, vel = (x.cpu().numpy() for x in run(scale, gen))
             out.setdefault(str(scale), {})[pname] = {
                 "return_mean": float(ret.mean()),
                 "return_std": float(ret.std()),
                 "velocity_return_mean": float(vel.mean()),
+                "n": int(ret.size),
+                "returns": ret.astype(float).tolist(),
+                "wall_s": time.perf_counter() - t0,
             }
             print(f"[ranges] {tag}scale={scale} {pname}: "
                   f"ret={ret.mean():.1f}±{ret.std():.1f} "

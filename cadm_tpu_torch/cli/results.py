@@ -225,6 +225,17 @@ def render(raw_dir: str = RAW) -> list:
         "--against results/raw`), but its extreme (119.1) stays above this "
         "table's (81.0), n = 1 each. Pendulum's JAX cell at today's config "
         "was not run.",
+        "- half_cheetah Vanilla + CaDM: RESULTS.md's two seeds ran two code "
+        "versions. Its s0 (written in `6930946`) predates the planner's "
+        "model-rollout blow-up guard (`beca625`) and the tri-state "
+        "`probabilistic`/`mean_anchor` (`941b933`) and evaluated with "
+        "`ensemble_eval: assign`: 5651 / 3860 / 2887 alone. Its s1 "
+        "(`13b77a2`, code `806c03e`) ran today's config: 4188 / 2977 / "
+        "2272. One trained model of this table's cell (s4), evaluated by "
+        "both packages at pinned scales 0.2–1.8 "
+        "(`scripts/cross_eval_ranges.py`, `results/torch/cross_eval/`), "
+        "acts alike in both: the extreme shortfall here is training or the "
+        "record, not the acting path (ROADMAP C5).",
         "",
     ]
 

@@ -10,7 +10,9 @@ they are: ReBAL's encoder ``{"gru": {"z"|"r"|"h": {"wx", "wh", "b"}},
 ``ScaleByAdamState`` are trees of the same shape. The PPO
 trainer's state carries across the same way (``ppo_state_from_jax``). Pass
 numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``); this module does
-not import jax.
+not import jax. ``params_to_numpy`` is the way back: the port's params and
+norm statistics as the same tree of float32 numpy arrays, which the JAX
+package takes as they are.
 """
 from __future__ import annotations
 
@@ -45,6 +47,24 @@ def params_from_jax(params_np: Mapping, norm_np: Any, device="cuda"
         for f in NORM_FIELDS
     ))
     return _to_torch(params_np, device), norm
+
+
+def _to_numpy(tree: Any) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_numpy(v) for v in tree]
+    return tree.detach().to("cpu", torch.float32).numpy()
+
+
+def params_to_numpy(params: Mapping, norm: NormStats
+                    ) -> Tuple[dict, dict]:
+    """The inverse of ``params_from_jax``: (params, norm) of the port as
+    (the same tree with float32 numpy leaves, ``{field: array}`` over
+    ``NORM_FIELDS``); ``NormStats(**norm)`` of either package takes the
+    second."""
+    return _to_numpy(params), {f: _to_numpy(getattr(norm, f))
+                               for f in NORM_FIELDS}
 
 
 def adam_state_from_jax(adam_np: Any, device="cuda") -> AdamState:

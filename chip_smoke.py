@@ -275,6 +275,9 @@ BASELINES = ("stacked", "rebal", "grbal")
 # inputs are captured there (phase 2)
 MAIN_PATH_SYSTEMS = (("half_cheetah", 2048), ("hopper", 512), ("ant", 1024),
                      ("cripple_ant", 1024), ("slim_humanoid", 512))
+# the eval modes phase 2 captures them in: train and extreme scales
+# (cripple_ant: the train legs and the held-out one)
+MAIN_PATH_MODES = (0, 2)
 # the training paths (phase 7) and the acting paths with their env counts
 # (phase 10); phases 5 and 6 run the training presets at toy width
 TRAIN_PRESETS = ("halfcheetah_cadm_cem", "cripple_ant_cadm_ensemble_cem")
@@ -487,14 +490,15 @@ def check_pgs(pgs, dev, gen):
 
 
 def capture_main_path(envs, rdyn, fk_kernel, dev, name="half_cheetah",
-                      n=E, steps=10):
+                      n=E, steps=10, mode=0):
     """K1's and K2's inputs on a family's main path: ``n`` envs (its preset's
-    batch) take ``steps`` random-action control steps so that they reach
-    the ground; of the next step, the first two solves (cold, then warm) and
-    the first smooth-stage call are kept."""
+    batch), reset and stepped in eval ``mode`` (0 train, 1 moderate, 2
+    extreme scales), take ``steps`` random-action control steps so that
+    they reach the ground; of the next step, the first two solves (cold,
+    then warm) and the first smooth-stage call are kept."""
     env = envs.make(name, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    states = env.reset(gen, n)
+    states = env.reset(gen, n, mode)
     low, high = env.action_limits()
 
     def act():
@@ -502,7 +506,7 @@ def capture_main_path(envs, rdyn, fk_kernel, dev, name="half_cheetah",
         return low + (high - low) * u
 
     for _ in range(steps):
-        states = env.step(states, act(), gen)[0]
+        states = env.step(states, act(), gen, mode)[0]
     captured, smooth = [], []
     solve, full_dyn = rdyn.pgs_solve, fk_kernel.full_dyn
 
@@ -519,7 +523,7 @@ def capture_main_path(envs, rdyn, fk_kernel, dev, name="half_cheetah",
 
     rdyn.pgs_solve, fk_kernel.full_dyn = keep, keep_smooth
     try:
-        env.step(states, act(), gen)
+        env.step(states, act(), gen, mode)
     finally:
         rdyn.pgs_solve, fk_kernel.full_dyn = solve, full_dyn
     torch.cuda.synchronize()
@@ -556,6 +560,30 @@ def check_full_dyn_main_path(fk_kernel, smooth, system):
         raise AssertionError(f"K2 disagrees with its plain version on the "
                              f"main path's inputs: {r}")
     return dict(r, system=system)
+
+
+def print_main_path_modes(k1_path, k2_path):
+    """K1's and K2's device ms and share of the bound, and the active-
+    contact histograms, on each family's main path in each eval mode."""
+    k1 = {(r["system"], r["tag"]): r for r in k1_path}
+    k2 = {r["system"]: r for r in k2_path}
+    share = lambda r: r["bound_ms"] / r["ms"]  # noqa: E731
+    for name, _ in MAIN_PATH_SYSTEMS:
+        for mode in MAIN_PATH_MODES:
+            system = main_path_label(name, mode)
+            cold, warm, r2 = k1[system, "cold"], k1[system, "warm"], k2[system]
+            print(f"main path {name} mode {mode}: K1 cold {cold['ms']:.4f} ms "
+                  f"({share(cold):.1%} of bound {cold['bound_ms']:.4f}), warm "
+                  f"{warm['ms']:.4f} ms ({share(warm):.1%}); K2 "
+                  f"{r2['ms']:.4f} ms ({share(r2):.1%} of bound "
+                  f"{r2['bound_ms']:.4f}); active contacts per env cold "
+                  f"{cold['hist']}, warm {warm['hist']}")
+
+
+def main_path_label(name: str, mode: int) -> str:
+    """A family's main-path label in phase 2: the name alone for mode 0 (the
+    kernels line's keys), ``<name> mode <m>`` otherwise."""
+    return name if mode == 0 else f"{name} mode {mode}"
 
 
 # ------------------------------------------------------------- phase 3: K2 --
@@ -3022,10 +3050,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1 = check_pgs(pgs, dev, gen)
     k1_path, k2_path = [], []
-    for name, n in MAIN_PATH_SYSTEMS:
-        captured, smooth = capture_main_path(envs, rdyn, fk_kernel, dev, name, n)
-        k1_path += check_pgs_main_path(pgs, captured, name)
-        k2_path.append(check_full_dyn_main_path(fk_kernel, smooth, name))
+    for mode in MAIN_PATH_MODES:
+        for name, n in MAIN_PATH_SYSTEMS:
+            captured, smooth = capture_main_path(envs, rdyn, fk_kernel, dev,
+                                                 name, n, mode=mode)
+            system = main_path_label(name, mode)
+            k1_path += check_pgs_main_path(pgs, captured, system)
+            k2_path.append(check_full_dyn_main_path(fk_kernel, smooth, system))
+    print_main_path_modes(k1_path, k2_path)
     k2 = check_full_dyn(fk_kernel, load_system, ASSETS, dev)
     k3 = check_fk_vel(fk_kernel, load_system, ASSETS, dev)
     for preset in TRAIN_PRESETS:

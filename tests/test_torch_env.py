@@ -1,8 +1,10 @@
 """The port's HalfCheetah env against the JAX env.
 
-Stepping is compared at fixed states, actions and hidden params. Sampling
-cannot reproduce ``jax.random`` bit for bit, so resets are checked by what
-they may produce: every mode draws only from its own CANONICAL_SET values.
+Stepping is compared at fixed states, actions and hidden params, train
+scales and the extreme corners. Sampling cannot reproduce ``jax.random``
+bit for bit, so resets are checked by what they may produce: every mode
+draws only from its own CANONICAL_SET values, each value and each (mass,
+damping) pair as often as a uniform draw.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ from cadm_tpu_torch.envs import make
 from cadm_tpu_torch.envs.half_cheetah import HalfCheetahEnv
 from cadm_tpu_torch.envs.ranges import CANONICAL_RANGE, CANONICAL_SET
 from cadm_tpu_torch.envs.rigid_base import MassDampingParams, RigidPhys
+from tests.torch_families_common import CORNERS, active_contacts
 
 # float32 physics through one control step (see test_torch_physics.py for
 # the measured ~2e-6); obs are qpos/qvel, rewards their linear function
@@ -41,22 +44,33 @@ def fixed_batch():
     return env, f32(qpos), f32(qvel), f32(ms), f32(ds), t, f32(act)
 
 
-def test_step_matches_jax_and_auto_resets():
-    jenv, qpos, qvel, ms, ds, t, act = fixed_batch()
+JAX_ENV = JaxCheetah()
+# one jitted step for every test of this file (same batch shape)
+_jax_env_step = jax.jit(jax.vmap(JAX_ENV.step))
+
+
+def both_states(qpos, qvel, ms, ds, t):
+    """The same env states in both packages."""
     jphys = JaxPhys(jnp.asarray(qpos), jnp.asarray(qvel))
     jparams = JaxParams(jnp.asarray(ms), jnp.asarray(ds))
-    jobs0 = jax.vmap(jenv.observe)(jparams, jphys)
-    jstate = JaxEnvState(phys=jphys, obs=jobs0, params=jparams,
-                         t=jnp.asarray(t), rng=jax.random.split(jax.random.key(0), N),
+    jstate = JaxEnvState(phys=jphys, obs=jax.vmap(JAX_ENV.observe)(jparams, jphys),
+                         params=jparams, t=jnp.asarray(t),
+                         rng=jax.random.split(jax.random.key(0), N),
                          done=jnp.zeros(N, bool))
-    _, jobs, jrew, jdone = jax.jit(jax.vmap(jenv.step))(jstate, jnp.asarray(act))
-
     env = HalfCheetahEnv(device="cpu")
     phys = RigidPhys(torch.from_numpy(qpos), torch.from_numpy(qvel))
     params = MassDampingParams(torch.from_numpy(ms), torch.from_numpy(ds))
     state = EnvState(phys=phys, obs=env.observe(params, phys), params=params,
                      t=torch.from_numpy(t), done=torch.zeros(N, dtype=torch.bool))
-    np.testing.assert_array_equal(state.obs.numpy(), np.asarray(jobs0))
+    return jstate, env, state
+
+
+def test_step_matches_jax_and_auto_resets():
+    _, qpos, qvel, ms, ds, t, act = fixed_batch()
+    jstate, env, state = both_states(qpos, qvel, ms, ds, t)
+    _, jobs, jrew, jdone = _jax_env_step(jstate, jnp.asarray(act))
+    params = state.params
+    np.testing.assert_array_equal(state.obs.numpy(), np.asarray(jstate.obs))
     nxt, obs, rew, done = env.step(state, torch.from_numpy(act),
                                    torch.Generator().manual_seed(0))
 
@@ -75,6 +89,54 @@ def test_step_matches_jax_and_auto_resets():
     assert fresh.abs().max() <= 0.1 + 1e-6
     assert torch.equal(nxt.obs[2:], env.observe(nxt.params, nxt.phys)[2:])
     assert torch.isfinite(obs).all() and obs.abs().max() <= 1e4
+
+
+def test_step_matches_jax_at_eval_scales():
+    """Three control steps at the extreme corners of (mass, damping), roots
+    lowered so that each env touches the ground: obs, reward and done after
+    each step."""
+    rng = np.random.RandomState(1)
+    sys_ = JAX_ENV.sys
+    qpos = sys_.default_qpos() + rng.uniform(-0.1, 0.1, (N, sys_.nq))
+    qpos[:, 1] -= np.linspace(0.15, 0.3, N)
+    qvel = 0.1 * rng.randn(N, sys_.nv)
+    ms, ds = np.array(CORNERS).T
+    f32 = lambda x: x.astype(np.float32)  # noqa: E731
+    qpos, qvel, ms, ds = map(f32, (qpos, qvel, ms, ds))
+    assert active_contacts("half_cheetah", qpos).min() >= 1
+    jstate, env, state = both_states(qpos, qvel, ms, ds,
+                                     np.array([0, 5, 10, 1], np.int32))
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        act = f32(rng.uniform(-1, 1, (N, sys_.nu)))
+        jstate, jobs, jrew, jdone = _jax_env_step(jstate, jnp.asarray(act))
+        state, obs, rew, done = env.step(state, torch.from_numpy(act), gen)
+        np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), atol=OBS_ATOL)
+        np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), atol=REW_ATOL)
+        assert not done.any() and not np.asarray(jdone).any()
+    assert torch.equal(state.params.mass_scale, torch.from_numpy(ms))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_reset_draws_each_scale_and_pair_uniformly(mode):
+    """4096 resets: each value's count, and each (mass, damping) pair's, is
+    within 5σ of uniform, so mass and damping are drawn apart (not the
+    same value row for row)."""
+    n = 4096
+    env = make("half_cheetah", device="cpu")
+    state = env.reset(torch.Generator().manual_seed(10 + mode), n, mode)
+    vals = np.float32((CANONICAL_SET.train, CANONICAL_SET.moderate,
+                       CANONICAL_SET.extreme)[mode])
+    idx = [np.searchsorted(vals, x.numpy()) for x in (
+        state.params.mass_scale, state.params.damping_scale)]
+    k = len(vals)
+    for counts, p in ((np.bincount(i, minlength=k), 1 / k) for i in idx):
+        assert counts.sum() == n
+        assert np.abs(counts - n * p).max() <= 5 * np.sqrt(n * p * (1 - p))
+    pairs = np.bincount(idx[0] * k + idx[1], minlength=k * k)
+    p = 1 / k ** 2
+    assert np.abs(pairs - n * p).max() <= 5 * np.sqrt(n * p * (1 - p))
+    assert (idx[0] != idx[1]).mean() > 0.5
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

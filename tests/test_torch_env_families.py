@@ -2,7 +2,8 @@
 JAX package's, on the same numpy-drawn states (tests/torch_families_common.py).
 
 Covered here: observation layout, reward and ``terminated`` on the same
-states (healthy and unhealthy ones), three control steps of ``step_phys``
+states (healthy and unhealthy ones), three control steps of ``step_phys`` at
+train scales and one and three at moderate and extreme ones
 (slim_humanoid's in test_torch_env_humanoid.py, its JAX reference alone
 costs ~20 s of compile), the ``terminate_unhealthy``/``horizon`` overrides,
 CrippleAnt's per-mode masks and its zero actuation on the crippled leg, the
@@ -79,6 +80,15 @@ def test_observation_reward_and_termination_match_jax(name, terminate):
 def test_step_phys_matches_jax(name):
     active = step_matches_jax(name)
     assert active.max() >= 2  # the contact solve does real work
+
+
+@pytest.mark.parametrize("control_steps", [1, 3])
+@pytest.mark.parametrize("name", ["hopper", "ant"])
+def test_step_phys_matches_jax_at_eval_scales(name, control_steps):
+    """Mass and damping scales from the moderate and extreme sets, the
+    extreme corners included (M⁻¹ grows ×5 at mass 0.2)."""
+    active = step_matches_jax(name, control_steps, eval_range=True)
+    assert active.max() >= 2 and active[-4:].sum() > 0  # corners in contact
 
 
 @pytest.mark.parametrize("name", ["hopper", "slim_humanoid"])

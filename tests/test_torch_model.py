@@ -17,7 +17,7 @@ from cadm_tpu.models.dynamics import NormStats as JaxNorm
 from cadm_tpu_torch.core.types import batched_history
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
 from cadm_tpu_torch.models.nets import member
-from cadm_tpu_torch.utils.convert import params_from_jax
+from cadm_tpu_torch.utils.convert import NORM_FIELDS, params_from_jax, params_to_numpy
 
 # float32 matmul chains of ≤ 5 layers summed in another order than XLA's
 ATOL = 1e-5
@@ -59,6 +59,33 @@ def test_param_tree_matches_jax_layout():
     w = own["fwd"][0]["w"]
     bound = 2.0 / (2.0 * np.sqrt(w.shape[-2]))
     assert w.abs().max() <= bound and torch.all(own["fwd"][0]["b"] == 0)
+
+
+def test_params_round_trip_jax_port_numpy_jax_bit_for_bit():
+    """``params_to_numpy`` inverts ``params_from_jax``: the JAX params and
+    norm statistics come back as the same tree of float32 arrays, and the
+    JAX model's prediction from them is the one from the originals."""
+    jm, jparams, jnorm, _, params, norm = jax_model_and_port()
+    back, back_norm = params_to_numpy(params, norm)
+    flat, tree = jax.tree.flatten(jparams)
+    flat_back, tree_back = jax.tree.flatten(back)
+    assert tree_back == tree and sorted(back_norm) == sorted(NORM_FIELDS)
+    for a, b in zip(flat, flat_back):
+        assert b.dtype == np.float32
+        np.testing.assert_array_equal(b, np.asarray(a))
+    for f in NORM_FIELDS:
+        np.testing.assert_array_equal(back_norm[f], np.asarray(getattr(jnorm, f)))
+    rng = np.random.RandomState(4)
+    obs = jnp.asarray(rng.randn(E, OBS).astype(np.float32))
+    act = jnp.asarray(rng.uniform(-1, 1, (E, ACT)).astype(np.float32))
+    z = jnp.asarray(rng.randn(E, 10).astype(np.float32))
+    back = jax.tree.map(jnp.asarray, back)
+    ref = jm.predict(jparams, jnorm, jax.tree.map(lambda x: x[0],
+                                                   jparams["fwd"]), obs, act, z)
+    got = jm.predict(back, JaxNorm(**{k: jnp.asarray(v)
+                                      for k, v in back_norm.items()}),
+                     jax.tree.map(lambda x: x[0], back["fwd"]), obs, act, z)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_get_context_matches_jax():

@@ -3,7 +3,8 @@
 Both packages get the same float32 states, controls and hidden params, drawn
 with numpy; some envs are lowered into the ground so that 1–6 of the 16
 contacts are active and the contact solve (K1's plain version, warm-started
-over the 5 substeps) does real work.
+over the 5 substeps) does real work. The hidden scales come from the train
+set and, in a second batch, from the moderate and extreme sets.
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from cadm_tpu.envs.rigid_base import load_system as jax_load_system
 from cadm_tpu.physics.rigid import dynamics as jdyn
 from cadm_tpu_torch.envs.rigid_base import load_system
 from cadm_tpu_torch.physics.rigid import dynamics as tdyn
+from tests.torch_families_common import CORNERS, active_contacts, eval_scales
 
 # Tolerance: float32 through 5 substeps of FK, an SPD inverse and up to 15
 # PGS sweeps, summed in another order than XLA's. Measured max differences
@@ -23,15 +25,20 @@ from cadm_tpu_torch.physics.rigid import dynamics as tdyn
 QPOS_ATOL, QVEL_ATOL = 1e-5, 1e-4
 
 
-def cheetah_batch(n=8, seed=0):
+def cheetah_batch(n=8, seed=0, eval_range=False):
+    """``eval_range``: mass and damping scales from the moderate and extreme
+    sets, the extreme corners on the lowest roots (``eval_scales``)."""
     sys_ = jax_load_system("half_cheetah.xml")
     rng = np.random.RandomState(seed)
     qpos = sys_.default_qpos() + rng.uniform(-0.1, 0.1, (n, sys_.nq))
     qpos[:, 1] -= np.linspace(0.0, 0.3, n)  # rootz: from airborne to in contact
     qvel = rng.uniform(-1, 1, (n, sys_.nv))
     ctrl = rng.uniform(-1, 1, (n, sys_.nu))
-    ms = rng.choice([0.75, 1.0, 1.25], n)
-    ds = rng.choice([0.75, 1.0, 1.25], n)
+    if eval_range:
+        ms, ds = eval_scales(rng, n)
+    else:
+        ms = rng.choice([0.75, 1.0, 1.25], n)
+        ds = rng.choice([0.75, 1.0, 1.25], n)
     return sys_, [x.astype(np.float32) for x in (qpos, qvel, ctrl, ms, ds)]
 
 
@@ -57,9 +64,29 @@ def test_batch_has_ground_contacts():
     assert active[0] == 0 and active[-1] >= 4
 
 
+def test_eval_batch_has_ground_contacts():
+    _, (qpos, *_, ms, ds) = cheetah_batch(seed=1, eval_range=True)
+    active = active_contacts("half_cheetah", qpos)
+    assert active[-4:].min() >= 1 and active.max() >= 4
+    assert sorted(zip(ms[-4:].tolist(), ds[-4:].tolist())) == sorted(
+        map(tuple, np.float32(CORNERS).tolist()))
+
+
 @pytest.mark.parametrize("control_steps", [1, 3])
 def test_step_n_matches_jax(control_steps):
-    _, (qpos, qvel, ctrl, ms, ds) = cheetah_batch()
+    step_n_matches_jax(control_steps)
+
+
+@pytest.mark.parametrize("control_steps", [1, 3])
+def test_step_n_matches_jax_at_eval_scales(control_steps):
+    """Moderate and extreme scales, the extreme corners included (M⁻¹
+    grows ×5 at mass 0.2)."""
+    step_n_matches_jax(control_steps, eval_range=True)
+
+
+def step_n_matches_jax(control_steps, eval_range=False):
+    _, (qpos, qvel, ctrl, ms, ds) = cheetah_batch(seed=int(eval_range),
+                                                   eval_range=eval_range)
     tsys = load_system("half_cheetah")
 
     jq, jv = jnp.asarray(qpos), jnp.asarray(qvel)

@@ -37,14 +37,28 @@ QPOS_ATOL, QVEL_ATOL = 1e-5, 1e-4
 OBS_ATOL, REW_ATOL = 1e-4, 1e-4
 FAMILIES = ("hopper", "ant", "cripple_ant", "slim_humanoid")
 N = 8
+# the moderate and extreme scale sets (envs/ranges.py's CANONICAL_SET) and
+# the (mass, damping) corners of the extreme one
+EVAL_SCALES = (0.2, 0.3, 0.4, 0.5, 1.5, 1.6, 1.7, 1.8)
+CORNERS = ((0.2, 1.8), (1.8, 0.2), (0.2, 0.2), (1.8, 1.8))
 
 
-def family_batch(name: str, seed: int = 0):
+def eval_scales(rng, n: int):
+    """(mass_scale, damping_scale), each (n,): the first n − 4 drawn from
+    EVAL_SCALES, the last 4 the CORNERS."""
+    ms, ds = rng.choice(EVAL_SCALES, (2, n - len(CORNERS)))
+    cm, cd = np.array(CORNERS).T
+    return np.concatenate([ms, cm]), np.concatenate([ds, cd])
+
+
+def family_batch(name: str, seed: int = 0, eval_range: bool = False):
     """(qpos, qvel, ctrl, params) as float32 numpy: near-initial poses with
     the root lowered step by step from its start height (so that feet and
     limbs reach the ground), unit root quaternions, random velocities and
     controls; params are (mass_scale, damping_scale) or, for cripple_ant,
-    act_mask (N, nu) with one leg zeroed per env."""
+    act_mask (N, nu) with one leg zeroed per env. ``eval_range`` draws the
+    scales with ``eval_scales`` (the corners on the lowest roots) instead
+    of from the train set."""
     env = make(name, device="cpu")
     sys_ = env.sys
     rng = np.random.RandomState(seed)
@@ -62,6 +76,8 @@ def family_batch(name: str, seed: int = 0):
         for e in range(N):
             mask[e, LEG_ACTUATORS[e % 4]] = 0.0
         params = (mask,)
+    elif eval_range:
+        params = eval_scales(rng, N)
     else:
         params = (rng.choice([0.75, 1.0, 1.25], N),
                   rng.choice([0.75, 1.0, 1.25], N))
@@ -130,10 +146,11 @@ def active_contacts(name, qpos):
     return (p[..., 2] < torch.tensor(c_rad).float()).sum(1)
 
 
-def step_matches_jax(name, control_steps=3):
-    """``control_steps`` of the port's ``step_phys`` against the JAX step;
-    returns the active-contact counts of the start states."""
-    qpos, qvel, ctrl, params = family_batch(name)
+def step_matches_jax(name, control_steps=3, eval_range=False):
+    """``control_steps`` of the port's ``step_phys`` against the JAX step
+    (on ``family_batch(name, eval_range=...)``, a second seed for the eval
+    range); returns the active-contact counts of the start states."""
+    qpos, qvel, ctrl, params = family_batch(name, int(eval_range), eval_range)
     env = make(name, device="cpu")
     phys = RigidPhys(torch.from_numpy(qpos), torch.from_numpy(qvel))
     tparams, tctrl = port_params(name, params), torch.from_numpy(ctrl)
