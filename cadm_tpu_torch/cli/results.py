@@ -236,6 +236,29 @@ def render(raw_dir: str = RAW) -> list:
         "(`scripts/cross_eval_ranges.py`, `results/torch/cross_eval/`), "
         "acts alike in both: the extreme shortfall here is training or the "
         "record, not the acting path (ROADMAP C5).",
+        "- Sharing the card: the first eight seed-0 cells (cartpole, "
+        "pendulum, and the cheetah's s0 and hopper's PPO + CaDM) ran as "
+        "five processes sharing one card, so their wall is not a cell's "
+        "own time; every later cell ran alone on the card, one at a time.",
+        "- half_cheetah PPO + CaDM: the JAX package's own cell at today's "
+        "config, trained on the CPU (`scripts/run_jax_cpu_cell.py`, "
+        "`results/torch/jax_cpu/`, seeds 0–2), lands out ×2 of "
+        "RESULTS.md's row on all four columns as well (below it on train, "
+        "above it on moderate, extreme and collect), so that row is not "
+        "this cell's reference at today's config. Against the JAX cell "
+        "(`--raw results/torch/raw --against results/torch/jax_cpu`) this "
+        "table's row is out ×2 above on train (every seed of it above "
+        "every JAX seed), out above on moderate, in on extreme and "
+        "collect (ROADMAP C3).",
+        "- The cripple_ant, slim_humanoid and hopper MB rows are one seed "
+        "each. Out ×2 of RESULTS.md's rows (`--against results/raw`): "
+        "cripple_ant Vanilla below on train, moderate and extreme, "
+        "cripple_ant Vanilla + CaDM above on collect, slim_humanoid "
+        "Vanilla below on extreme, hopper Vanilla below on collect, hopper "
+        "Vanilla + CaDM below on train and collect. Each reference "
+        "half-range there is narrower than the swing of either reference "
+        "seed between its own evals; the second seeds are queued (ROADMAP "
+        "C7).",
         "",
     ]
 

@@ -94,17 +94,20 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    launches = frame_skip × its control steps.
 
 12. the result-matrix runner (``cadm_tpu_torch.cli.matrix.main``) on
-   ``half_cheetah cadm s0`` at full width (256 envs, CEM 256 × 30 × 5
-   warm-started, heads 4×200, an 8000-column ring, eval 32 envs), cut in
-   depth only through a copy of its table (TRAIN_DEPTH), its output in a
-   temporary directory: the cell JSON has the keys of the reference's
-   record (``results/raw/half_cheetah__cadm__s1.json``, read as data) plus
+   ``half_cheetah cadm s0``, ``hopper cadm s0`` and ``slim_humanoid cadm
+   s0`` (the last two under the MBBL fixed-horizon protocol) at full width
+   (256 envs, CEM 256 × 30 × 5 warm-started, heads 4×200, the family's
+   ring, eval 32 envs), cut in depth only through a copy of its table
+   (TRAIN_DEPTH), its output in a temporary directory: each cell JSON has
+   the keys of its family's reference record
+   (``results/raw/<family>__cadm__s1.json``, read as data) plus
    ``code_version``, ``loss_variant`` and ``card``, its history columns and
    config are the record's (bar the seed, the cut and
    ``max_parallel_rollouts``), every value finite; K1/K2 launches =
    frame_skip × control steps; a second ``main`` skips the done cell with 0
-   launches; ``cli.results.render`` gives the cell's row. Prints the full
-   cell's planned and eval steps' time at the measured rates.
+   launches; ``cli.results.render`` gives the cell's row. Prints each full
+   cell's planned and eval steps' time at the measured rates, and the
+   phase's seconds per family.
 13. the snapshot analyses (``cadm_tpu_torch.analysis``) on phase 12's
    snapshot at the cell's full width: probe_context with the planner (one
    round of 12 steps at 256 envs) and with the random policy on mode 1,
@@ -1719,16 +1722,20 @@ def run_mesh():
 
 
 # ---------------------------------------------------- phase 12: the matrix --
-# the newest reference record of the cell (s0 predates the loss-variant tag
-# and three history columns its runner writes now)
-MATRIX_REFERENCE = os.path.join(ROOT, "results", "raw",
-                                "half_cheetah__cadm__s1.json")
+# the CaDM cells phase 12 runs, each held to the newest reference record of
+# its family (s0 predates the loss-variant tag and the history columns its
+# runner writes now); hopper and slim_humanoid run the MBBL fixed-horizon
+# protocol (no early termination)
+MATRIX_FAMILIES = ("half_cheetah", "hopper", "slim_humanoid")
+MATRIX_REFERENCES = {
+    f: os.path.join(ROOT, "results", "raw", f"{f}__cadm__s1.json")
+    for f in MATRIX_FAMILIES}
 
 
-def run_matrix(pgs, fk_kernel):
-    """``cli.matrix.main`` on ``half_cheetah cadm s0`` at full width (256
-    envs, CEM 256 × 30 × 5, heads 4×200, an 8000-column ring), cut in depth
-    by TRAIN_DEPTH through a copy of the runner's table, its output
+def run_matrix(pgs, fk_kernel, family="half_cheetah"):
+    """``cli.matrix.main`` on ``<family> cadm s0`` at full width (256 envs,
+    CEM 256 × 30 × 5, heads 4×200, the family's ring), cut in depth by
+    TRAIN_DEPTH through a copy of the runner's table, its output
     directories in a temporary one. Checks the cell JSON against the
     reference's record, the launches, a second run skipping the done cell
     and the renderer's row; returns the launches of the first run and the
@@ -1741,11 +1748,10 @@ def run_matrix(pgs, fk_kernel):
     cut = {f[2:].replace("-", "_"): int(v)
            for f, v in zip(TRAIN_DEPTH[::2], TRAIN_DEPTH[1::2])}
     table = {**matrix.FAMILY_BASE,
-             "half_cheetah": {**matrix.FAMILY_BASE["half_cheetah"], **cut}}
-    argv = ["--families", "half_cheetah", "--models", "cadm", "--seeds",
-            str(SEED)]
-    name = matrix.cell_name("half_cheetah", "cadm", SEED)
-    with open(MATRIX_REFERENCE) as f:
+             family: {**matrix.FAMILY_BASE[family], **cut}}
+    argv = ["--families", family, "--models", "cadm", "--seeds", str(SEED)]
+    name = matrix.cell_name(family, "cadm", SEED)
+    with open(MATRIX_REFERENCES[family]) as f:
         ref = json.load(f)
     log, launched, again = [], [], []
     gc.collect()
@@ -1766,7 +1772,7 @@ def run_matrix(pgs, fk_kernel):
         with counted(pgs, fk_kernel, again):
             matrix.main(argv)
         rows = [r for r in results.render(f"{tmp}/raw")
-                if r.startswith("| half_cheetah | Vanilla + CaDM |")]
+                if r.startswith(f"| {family} | Vanilla + CaDM |")]
         left = sorted(os.listdir(f"{tmp}/raw"))
 
     cols = set().union(*cell["history"])
@@ -1791,21 +1797,20 @@ def run_matrix(pgs, fk_kernel):
               and cell["config"].get(k) != v}
     if differ or cell["loss_variant"] != ref["loss_variant"]:
         raise AssertionError(f"matrix {name}: config differs {differ}")
-    # the full cell's time at this run's rates: 15 planned iterations of
-    # 500 steps, 6 evals × 3 modes of 1000 steps (fits not counted)
+    # the full cell's time at this run's rates: n_itr - 1 planned
+    # iterations, each eval 3 modes of a 1000-step episode (the envs' own
+    # horizon where the family sets none; fits not counted)
     planned = next(s / a[0].cfg.steps_per_itr for n, s, a, _ in log
                    if n == "_collect" and not a[6])
     evals = [s / a[0].env.horizon for n, s, a, _ in log if n == "evaluate"]
     eval_step = sum(evals) / len(evals)
-    full = {**matrix.FAMILY_BASE["half_cheetah"],
-            **matrix.MODEL_VARIANTS["cadm"]}
-    n_evals = sum((i + 1) % full["eval_every"] == 0 or i == full["n_itr"] - 1
-                  for i in range(full["n_itr"]))
-    estimate = ((full["n_itr"] - 1) * full["steps_per_itr"] * planned
-                + n_evals * 3 * 1000 * eval_step)
+    full = matrix.cell_config(family, "cadm", SEED)
+    estimate = ((full.n_itr - 1) * full.steps_per_itr * planned
+                + len(evaluating_itrs(full)) * len(full.eval_modes)
+                * (full.env_horizon or 1000) * eval_step)
     print(f"matrix {name}: planned collect {1e3 * planned:.1f} ms per step "
-          f"at {full['n_envs']} envs, eval {1e3 * eval_step:.1f} ms per step "
-          f"at {full['eval_envs']} envs (each call here holds its step "
+          f"at {full.n_envs} envs, eval {1e3 * eval_step:.1f} ms per step "
+          f"at {full.eval_envs} envs (each call here holds its step "
           f"graph's warm-up and capture); the full cell's planned and eval "
           f"steps alone at these rates: {estimate:.0f} s")
     print(f"matrix second main (cell done): launches {again}; renderer: "
@@ -1816,6 +1821,24 @@ def run_matrix(pgs, fk_kernel):
     check_launches(f"matrix {name}", launched, log[0][2][0].env.frame_skip,
                    control_steps(log))
     return launched, snapshot
+
+
+def run_matrices(pgs, fk_kernel):
+    """Phase 12 on each of MATRIX_FAMILIES, timed: the launches of each
+    path, and the cheetah's snapshot (phase 13 reads it)."""
+    paths, seconds = {}, {}
+    for family in MATRIX_FAMILIES:
+        t0 = time.perf_counter()
+        paths[f"matrix {family} cadm"], snap = run_matrix(pgs, fk_kernel,
+                                                          family)
+        seconds[family] = time.perf_counter() - t0
+        if family == "half_cheetah":
+            snapshot = snap
+    added = sum(seconds.values()) - seconds["half_cheetah"]
+    print("phase 12 seconds: " + ", ".join(
+        f"{f} {s:.1f}" for f, s in seconds.items())
+        + f"; the MBBL families add {added:.1f} s")
+    return paths, snapshot
 
 
 # ---------------------------------------------------- phase 13: the probes --
@@ -3036,8 +3059,7 @@ def main(argv=None) -> int:
     elif only == "mjcf":
         paths = run_mjcf(pgs, fk_kernel)[0]
     elif only:
-        launched, snap = run_matrix(pgs, fk_kernel)
-        paths = {"matrix half_cheetah cadm": launched}
+        paths, snap = run_matrices(pgs, fk_kernel)
         if only == "probes":
             paths.update(run_probes(pgs, fk_kernel, snap))
     if only:
@@ -3086,7 +3108,8 @@ def main(argv=None) -> int:
         step_ms[preset], paths[f"act {preset}"] = run_full_slice(
             PRESETS, pgs, fk_kernel, preset, n)
     paths.update(run_mesh())
-    paths["matrix half_cheetah cadm"], snap = run_matrix(pgs, fk_kernel)
+    matrix_paths, snap = run_matrices(pgs, fk_kernel)
+    paths.update(matrix_paths)
     paths.update(run_probes(pgs, fk_kernel, snap))
     bench_paths, k1_bench, k2_bench = run_bench(pgs, fk_kernel, rdyn)
     paths.update(bench_paths)

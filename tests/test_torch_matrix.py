@@ -4,8 +4,9 @@ matrix.py``, ``cli/results.py``) against the reference's scripts
 config, the runner's attempt/crash/SIGTERM bookkeeping (``run_cell``
 monkeypatched, as tests/test_matrix_runner.py does for the reference), a
 toy MB and a toy PPO cell trained on the CPU by both runners (the same JSON
-keys, bar the port's ``card``, and the same history columns), the rendered
-table rows on ``results/raw/`` and the loss-variant tag.
+keys, bar the port's ``card``, and the same history columns), the config of
+each cell committed under ``results/torch/raw/``, the rendered table rows on
+``results/raw/`` and the loss-variant tag.
 """
 import dataclasses
 import json
@@ -226,6 +227,28 @@ def test_a_toy_cell_records_what_the_reference_records(
     snap = torch.load(os.path.join(matrix.CKPT_DIR, name + ".pt"),
                       weights_only=True)
     assert set(snap) >= {"params", "norm"}
+
+
+# ---------------------------------------------- (iii b) the committed cells --
+TORCH_RAW = os.path.join(ROOT, "results", "torch", "raw")
+COMMITTED = sorted(f[:-len(".json")] for f in os.listdir(TORCH_RAW)
+                   if f.endswith(".json"))
+
+
+@pytest.mark.parametrize("name", COMMITTED)
+def test_a_committed_cell_records_its_matrix_config(name):
+    """Each cell the card wrote under ``results/torch/raw/`` holds, for its
+    ``<family>__<model>__s<seed>`` name, every field ``cell_config`` sets,
+    and was trained on a card."""
+    family, model, seed = name.split("__")
+    with open(os.path.join(TORCH_RAW, name + ".json")) as f:
+        cell = json.load(f)
+    seed = int(seed[1:])
+    assert (cell["family"], cell["model"], cell["seed"]) == (
+        family, model, seed)
+    config = dataclasses.asdict(matrix.cell_config(family, model, seed))
+    assert cell["config"] == json.loads(json.dumps(config))
+    assert cell["card"] and cell["card"] != "cpu"
 
 
 # ------------------------------------------------------ (iv) the renderer --
