@@ -94,20 +94,21 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    launches = frame_skip × its control steps.
 
 12. the result-matrix runner (``cadm_tpu_torch.cli.matrix.main``) on
-   ``half_cheetah cadm s0``, ``hopper cadm s0`` and ``slim_humanoid cadm
-   s0`` (the last two under the MBBL fixed-horizon protocol) at full width
-   (256 envs, CEM 256 × 30 × 5 warm-started, heads 4×200, the family's
-   ring, eval 32 envs), cut in depth only through a copy of its table
-   (TRAIN_DEPTH), its output in a temporary directory: each cell JSON has
-   the keys of its family's reference record
-   (``results/raw/<family>__cadm__s1.json``, read as data) plus
+   ``half_cheetah cadm s0``, ``half_cheetah pets_cadm s0`` (PE-TS + CaDM:
+   5 probabilistic members, TS1 planning), ``hopper cadm s0`` and
+   ``slim_humanoid cadm s0`` (the last two under the MBBL fixed-horizon
+   protocol) at full width (256 envs, CEM 256 × 30 × 5 warm-started, heads
+   4×200, the family's ring, eval 32 envs), cut in depth only through a
+   copy of its table (TRAIN_DEPTH), its output in a temporary directory:
+   each cell JSON has the keys of its cell's reference record
+   (``results/raw/<family>__<model>__s1.json``, read as data) plus
    ``code_version``, ``loss_variant`` and ``card``, its history columns and
    config are the record's (bar the seed, the cut and
    ``max_parallel_rollouts``), every value finite; K1/K2 launches =
    frame_skip × control steps; a second ``main`` skips the done cell with 0
    launches; ``cli.results.render`` gives the cell's row. Prints each full
    cell's planned and eval steps' time at the measured rates, and the
-   phase's seconds per family.
+   phase's seconds per cell.
 13. the snapshot analyses (``cadm_tpu_torch.analysis``) on phase 12's
    snapshot at the cell's full width: probe_context with the planner (one
    round of 12 steps at 256 envs) and with the random policy on mode 1,
@@ -1722,19 +1723,21 @@ def run_mesh():
 
 
 # ---------------------------------------------------- phase 12: the matrix --
-# the CaDM cells phase 12 runs, each held to the newest reference record of
-# its family (s0 predates the loss-variant tag and the history columns its
-# runner writes now); hopper and slim_humanoid run the MBBL fixed-horizon
-# protocol (no early termination)
-MATRIX_FAMILIES = ("half_cheetah", "hopper", "slim_humanoid")
+# the cells phase 12 runs, (family, model) at seed 0, each held to the newest
+# reference record of its cell (s0 predates the loss-variant tag and the
+# history columns its runner writes now); hopper and slim_humanoid run the
+# MBBL fixed-horizon protocol (no early termination); pets_cadm is the
+# paper's PE-TS + CaDM (5 probabilistic members, TS1 planning)
+MATRIX_CELLS = (("half_cheetah", "cadm"), ("half_cheetah", "pets_cadm"),
+                ("hopper", "cadm"), ("slim_humanoid", "cadm"))
 MATRIX_REFERENCES = {
-    f: os.path.join(ROOT, "results", "raw", f"{f}__cadm__s1.json")
-    for f in MATRIX_FAMILIES}
+    (f, m): os.path.join(ROOT, "results", "raw", f"{f}__{m}__s1.json")
+    for f, m in MATRIX_CELLS}
 
 
-def run_matrix(pgs, fk_kernel, family="half_cheetah"):
-    """``cli.matrix.main`` on ``<family> cadm s0`` at full width (256 envs,
-    CEM 256 × 30 × 5, heads 4×200, the family's ring), cut in depth by
+def run_matrix(pgs, fk_kernel, family="half_cheetah", model="cadm"):
+    """``cli.matrix.main`` on ``<family> <model> s0`` at full width (256
+    envs, CEM 256 × 30 × 5, heads 4×200, the family's ring), cut in depth by
     TRAIN_DEPTH through a copy of the runner's table, its output
     directories in a temporary one. Checks the cell JSON against the
     reference's record, the launches, a second run skipping the done cell
@@ -1749,9 +1752,9 @@ def run_matrix(pgs, fk_kernel, family="half_cheetah"):
            for f, v in zip(TRAIN_DEPTH[::2], TRAIN_DEPTH[1::2])}
     table = {**matrix.FAMILY_BASE,
              family: {**matrix.FAMILY_BASE[family], **cut}}
-    argv = ["--families", family, "--models", "cadm", "--seeds", str(SEED)]
-    name = matrix.cell_name(family, "cadm", SEED)
-    with open(MATRIX_REFERENCES[family]) as f:
+    argv = ["--families", family, "--models", model, "--seeds", str(SEED)]
+    name = matrix.cell_name(family, model, SEED)
+    with open(MATRIX_REFERENCES[family, model]) as f:
         ref = json.load(f)
     log, launched, again = [], [], []
     gc.collect()
@@ -1771,8 +1774,8 @@ def run_matrix(pgs, fk_kernel, family="half_cheetah"):
                               weights_only=True)
         with counted(pgs, fk_kernel, again):
             matrix.main(argv)
-        rows = [r for r in results.render(f"{tmp}/raw")
-                if r.startswith(f"| {family} | Vanilla + CaDM |")]
+        rows = [r for r in results.render(f"{tmp}/raw") if r.startswith(
+            f"| {family} | {results.MODEL_LABEL[model]} |")]
         left = sorted(os.listdir(f"{tmp}/raw"))
 
     cols = set().union(*cell["history"])
@@ -1804,7 +1807,7 @@ def run_matrix(pgs, fk_kernel, family="half_cheetah"):
                    if n == "_collect" and not a[6])
     evals = [s / a[0].env.horizon for n, s, a, _ in log if n == "evaluate"]
     eval_step = sum(evals) / len(evals)
-    full = matrix.cell_config(family, "cadm", SEED)
+    full = matrix.cell_config(family, model, SEED)
     estimate = ((full.n_itr - 1) * full.steps_per_itr * planned
                 + len(evaluating_itrs(full)) * len(full.eval_modes)
                 * (full.env_horizon or 1000) * eval_step)
@@ -1824,20 +1827,18 @@ def run_matrix(pgs, fk_kernel, family="half_cheetah"):
 
 
 def run_matrices(pgs, fk_kernel):
-    """Phase 12 on each of MATRIX_FAMILIES, timed: the launches of each
-    path, and the cheetah's snapshot (phase 13 reads it)."""
+    """Phase 12 on each of MATRIX_CELLS, timed: the launches of each path,
+    and the cheetah CaDM's snapshot (phase 13 reads it)."""
     paths, seconds = {}, {}
-    for family in MATRIX_FAMILIES:
+    for family, model in MATRIX_CELLS:
         t0 = time.perf_counter()
-        paths[f"matrix {family} cadm"], snap = run_matrix(pgs, fk_kernel,
-                                                          family)
-        seconds[family] = time.perf_counter() - t0
-        if family == "half_cheetah":
+        paths[f"matrix {family} {model}"], snap = run_matrix(
+            pgs, fk_kernel, family, model)
+        seconds[family, model] = time.perf_counter() - t0
+        if (family, model) == ("half_cheetah", "cadm"):
             snapshot = snap
-    added = sum(seconds.values()) - seconds["half_cheetah"]
     print("phase 12 seconds: " + ", ".join(
-        f"{f} {s:.1f}" for f, s in seconds.items())
-        + f"; the MBBL families add {added:.1f} s")
+        f"{f} {m} {s:.1f}" for (f, m), s in seconds.items()))
     return paths, snapshot
 
 

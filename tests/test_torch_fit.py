@@ -1,6 +1,8 @@
 """The port's model fit against the JAX package: loss and gradient, the
 optimizer step (optax ``clip_by_global_norm(10)`` → ``adam(1e-3)``), the norm
-refresh, the epoch arithmetic, the early-stop rule and a whole epoch fit.
+refresh, the epoch arithmetic, the early-stop rule and a whole epoch fit (one
+deterministic member, and the result matrix's five probabilistic PE-TS + CaDM
+members with the shared and the detached log-variance trunk).
 
 Weights, optimizer state and inputs come from the JAX side (converted with
 ``utils.convert``); where the JAX trainer draws segment indices from its keys,
@@ -155,16 +157,17 @@ def test_twenty_updates_match_optax_from_a_mid_training_state():
 
 
 # ------------------------------------------------------------- trainers --
-def trainers(n_envs=4, capacity=40, **fit):
+def trainers(n_envs=4, capacity=40, model_cfg=None, **fit):
     """The JAX and port trainers at toy width on HalfCheetah."""
+    model_cfg = MODEL if model_cfg is None else model_cfg
     tcfg = dict(n_envs=n_envs, batch_size=B, buffer_capacity=capacity,
                 fit_protocol="epochs", **fit)
     plan = dict(kind="cem", horizon=3, n_candidates=8, cem_iters=1,
                 cem_elites=2)
-    jenv, jm = JaxCheetah(), JaxDynamics(JaxConfig(**MODEL))
+    jenv, jm = JaxCheetah(), JaxDynamics(JaxConfig(**model_cfg))
     jplanner = JaxPlanner(JaxPlannerConfig(**plan), jm, jenv.reward, ACT)
-    env, model = HalfCheetahEnv(device="cpu"), Dynamics(DynamicsConfig(**MODEL),
-                                                        "cpu")
+    env = HalfCheetahEnv(device="cpu")
+    model = Dynamics(DynamicsConfig(**model_cfg), "cpu")
     planner = MPCPlanner(PlannerConfig(**plan), model, env.reward, ACT)
     return (JaxTrainer(jenv, jm, jplanner, JaxTrainerConfig(**tcfg)),
             MBTrainer(env, model, planner, TrainerConfig(**tcfg)))
@@ -261,7 +264,7 @@ def test_early_stop_sequence_matches_jax(script):
 def jax_fit_draws(jtr, jbuf, rng, n_mb, mb_cap):
     """Every (split, env_idx, u) the JAX ``_fit_epochs_impl`` draws from
     ``rng``, in order (all ``max_epochs`` epochs)."""
-    cfg, shape = jtr.cfg, (1, B)
+    cfg, shape = jtr.cfg, (jtr.model.cfg.n_members, B)
 
     def draw(key, split):
         r_seg, _ = jax.random.split(key)          # MBTrainer._sample
@@ -285,14 +288,31 @@ def jax_fit_draws(jtr, jbuf, rng, n_mb, mb_cap):
     return out
 
 
-def test_epoch_fit_matches_jax_with_the_same_batches():
-    jtr, tr = trainers(max_epochs=4, early_stop_patience=2)
+# PE-TS + CaDM as the result matrix trains it (cli/matrix.py's pets_cadm and
+# pets_cadm_dv): five probabilistic members under the decoupled loss, each
+# drawing its own bootstrap minibatch
+PETS = dict(MODEL, n_members=5, probabilistic=True, mean_anchor=1.0)
+EPOCH_FITS = {
+    "deterministic": (MODEL, {}),
+    "pets_cadm": (PETS, {}),
+    "pets_cadm_detached": (dict(PETS, detach_logvar_trunk=True), {}),
+    "pets_cadm_dv": (dict(PETS, detach_logvar_trunk=True),
+                     dict(early_stop_metric="fwd_mse")),
+}
+
+
+@pytest.mark.parametrize("case", list(EPOCH_FITS))
+def test_epoch_fit_matches_jax_with_the_same_batches(case):
+    model_cfg, fit = EPOCH_FITS[case]
+    jtr, tr = trainers(model_cfg=model_cfg, max_epochs=4,
+                       early_stop_patience=2, **fit)
     jbuf, buf = filled_buffers(4, 40, 30, seed=4)
     mb_cap, n_mb = epoch_minibatches(buf.n_train_anchors(), 40, 4, B, 500)
     assert n_mb == 27 * 4 // B
     jstate = jtr.model.init_state(jax.random.key(5))
     rng = jax.random.key(6)
     draws = jax_fit_draws(jtr, jbuf, rng, n_mb, mb_cap)
+    assert draws[0][1].shape == (model_cfg.get("n_members", 1), B)
 
     def injected(buffer, gen, split):
         want, env_idx, u = draws.pop(0)
@@ -308,11 +328,25 @@ def test_epoch_fit_matches_jax_with_the_same_batches():
     assert met["fit/epochs_run"] == epochs >= 2
     # the port drew exactly the batches of the epochs that ran
     assert n_draws - len(draws) == 4 + epochs * (n_mb + 4)
+    assert sorted(met) == sorted(jmet)
     for key, val in met.items():
         np.testing.assert_allclose(float(val), float(jmet[key]),
                                    atol=FIT_ATOL, rtol=FIT_RTOL, err_msg=key)
     assert_trees_close(state.params, jstate_out.params, FIT_ATOL)
     assert state.updates == int(jstate_out.updates) == epochs * n_mb
+    # the fitted models' loss terms on one held-out batch, the members'
+    # log-variance bound penalty among them
+    jb = jtr._sample(jbuf, jax.random.key(7), "valid")
+    _, jlm = jtr.model.loss(jstate_out.params, jstate_out.norm, jb)
+    _, lm = tr.model.loss(state.params, state.norm, SegmentBatch(
+        **{f.name: torch.tensor(np.asarray(getattr(jb, f.name)))
+           for f in dataclasses.fields(jb)}))
+    assert sorted(lm) == sorted(jlm)
+    assert ("logvar_bound_penalty" in lm) == model_cfg.get("probabilistic",
+                                                            False)
+    for key, val in lm.items():
+        np.testing.assert_allclose(float(val), float(jlm[key]),
+                                   atol=FIT_ATOL, rtol=FIT_RTOL, err_msg=key)
 
 
 def test_early_stop_step_float32_rule():

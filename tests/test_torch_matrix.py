@@ -6,7 +6,8 @@ monkeypatched, as tests/test_matrix_runner.py does for the reference), a
 toy MB and a toy PPO cell trained on the CPU by both runners (the same JSON
 keys, bar the port's ``card``, and the same history columns), the config of
 each cell committed under ``results/torch/raw/``, the rendered table rows on
-``results/raw/`` and the loss-variant tag.
+``results/raw/``, the fit trace (``--fit-trace``) of the reference's records
+and the loss-variant tag.
 """
 import dataclasses
 import json
@@ -304,6 +305,40 @@ def test_compare_marks_a_row_outside_the_references_spread(tmp_path, ours,
                        f"{ours + 1:.1f} / 13.0 ± 2.0{mark} | "
                        f"{ours + 2:.1f} / 14.0 ± 2.0{mark} | — | 1 / 2 |")
     assert len(rows) == 3
+
+
+# ---------------------------------------------------- (iv b) the fit trace --
+JAX_RAW = os.path.join(ROOT, "results", "raw")
+
+
+@pytest.mark.parametrize("name, want", [
+    # the shared-trunk ensemble's degradation, and the detached head's hold
+    ("half_cheetah__pets_cadm__s0", (0.0313, 0.0660, 0.117, 3.50)),
+    ("half_cheetah__pets_cadm_dv__s0", (0.0139, 0.0082, 0.016, 5.50)),
+])
+def test_the_fit_trace_of_a_reference_record(name, want):
+    with open(os.path.join(JAX_RAW, name + ".json")) as f:
+        trace = results.fit_trace(json.load(f))
+    assert [round(v, 4) for v in trace[:2]] == list(want[:2])
+    assert round(trace[2], 3) == want[2] and trace[3] == want[3]
+
+
+def test_the_fit_trace_names_a_record_without_the_column(tmp_path):
+    for name in ("half_cheetah__cadm__s0", "half_cheetah__pets_cadm__s0"):
+        with open(os.path.join(JAX_RAW, name + ".json")) as f:
+            (tmp_path / (name + ".json")).write_text(f.read())
+    with open(os.path.join(JAX_RAW, "half_cheetah__cadm__s0.json")) as f:
+        assert results.fit_trace(json.load(f)) is None
+    rows = results.fit_trace_table(str(tmp_path), JAX_RAW)
+    assert rows[2] == ("| half_cheetah__cadm__s0 | skip: no "
+                       "fit/valid_fwd_mse_after column | s0 no column; s1 "
+                       "0.0165 → 0.0131, max 0.018, epochs 3.88 |")
+    assert rows[3].startswith("| half_cheetah__pets_cadm__s0 | 0.0313 → "
+                              "0.0660, max 0.117, epochs 3.50 | s0 0.0313")
+    assert len(rows) == 4
+    out = tmp_path / "out.md"
+    results.main(["--raw", str(tmp_path), "--out", str(out), "--fit-trace"])
+    assert not out.exists()
 
 
 # ------------------------------------------------------ (v) the loss tag --
