@@ -46,8 +46,8 @@ def make_rollout(env, n_envs: int, policy: dict,
                  horizon: Optional[int] = None):
     """``run(scale, gen, start=None) -> (return, velocity return)``, each
     (n_envs,): one fixed-horizon episode per env (``horizon``, default
-    ``env.horizon``) at a PINNED hidden scale, each env's return counted up
-    to its first done.
+    ``env.horizon``) at a PINNED hidden scale (``None``: the mode-0 reset's
+    own scales), each env's return counted up to its first done.
 
     ``policy`` is a dict of closures: ``init(n) -> aux``, ``act(states, aux,
     gen, t) -> (actions, aux)``, ``post(aux, prev_obs, obs, actions) ->
@@ -60,8 +60,8 @@ def make_rollout(env, n_envs: int, policy: dict,
     @torch.no_grad()
     def run(scale: float, gen: torch.Generator, start=None):
         states = env.reset(gen, n_envs, 0) if start is None else start
-        states = dataclasses.replace(states, params=tree_map(
-            lambda x: torch.full_like(x, scale), states.params))
+        if scale is not None:
+            states = pinned(states, scale)
         aux = policy["init"](n_envs)
         ret = torch.zeros(n_envs, device=env.device)
         vel_ret = torch.zeros(n_envs, device=env.device)
@@ -111,6 +111,32 @@ def planner_policy(env, model, planner, dyn_state) -> dict:
             "act": act, "post": post}
 
 
+def ppo_policy(trainer, ppo_state, dyn_state) -> dict:
+    """The PPO trainer's eval policy (``PPOTrainer._eval_step``): the
+    clipped deterministic mean of the policy on concat(obs, z), z from the
+    pushed (never wiped) history; aux = histories."""
+    model = trainer.model
+
+    def act(states, hists, gen, t):
+        mean, _ = trainer._dist(ppo_state.params, trainer._obs_z(
+            dyn_state, states.obs, hists))
+        return torch.clamp(mean, -1.0, 1.0), hists
+
+    def post(hists, prev_obs, obs, actions):
+        return model.push_history(dyn_state.params, dyn_state.norm, hists,
+                                  prev_obs, obs - prev_obs, actions)
+
+    return {"init": lambda n: batched_history(model.cfg, n,
+                                              trainer.env.device),
+            "act": act, "post": post}
+
+
+def pinned(states, scale: float):
+    """``states`` with every leaf of the hidden params set to ``scale``."""
+    return dataclasses.replace(states, params=tree_map(
+        lambda x: torch.full_like(x, scale), states.params))
+
+
 def scale_seed(scale: float) -> int:
     """The script's per-scale key, ``17 + int(scale * 10)``."""
     return 17 + int(scale * 10)
@@ -143,6 +169,42 @@ def scale_sweep(env, n_envs: int, policies: dict,
             print(f"[ranges] {tag}scale={scale} {pname}: "
                   f"ret={ret.mean():.1f}±{ret.std():.1f} "
                   f"vel_ret={vel.mean():.1f}", flush=True)
+    return out
+
+
+def ppo_sweep(trainer, policy: dict, dyn_state, scales=SCALES,
+              key_offset: int = 0, tag: str = "", graph: bool = True) -> dict:
+    """{scale or ``mode0``: record} of the PPO trainer's eval
+    (``PPOTrainer.evaluate``: ``eval_envs`` envs, ``env.horizon`` steps)
+    with the policy params ``policy``, from reset states pinned to each
+    scale (the generator seeded with ``scale_seed`` + ``key_offset``) and
+    from mode-0 resets (seed 7 + ``key_offset``): the port side of
+    ``scripts/cross_eval_ranges.py`` for a PPO cell. A record holds the
+    return mean, population std, ``n``, the per-env ``returns`` and the
+    eval's ``wall_s`` (no velocity return: the eval does not split it
+    out). ``graph=False`` rolls ``ppo_policy`` through ``make_rollout``
+    instead, op by op on any device: the same episodes."""
+    from cadm_tpu_torch.train.ppo import PPOState
+
+    env, n = trainer.env, trainer.cfg.eval_envs
+    ppo = PPOState(policy, None)
+    rollout = make_rollout(env, n, ppo_policy(trainer, ppo, dyn_state))
+    out = {}
+    for scale in [*scales, None]:
+        seed = 7 if scale is None else scale_seed(scale)
+        gen = torch.Generator(device=env.device).manual_seed(seed + key_offset)
+        start = None if scale is None else pinned(env.reset(gen, n, 0), scale)
+        t0 = time.perf_counter()
+        ret = (trainer.evaluate(ppo, dyn_state, 0, gen, start=start) if graph
+               else rollout(scale, gen, start)[0]).cpu().numpy().astype(float)
+        key = "mode0" if scale is None else str(scale)
+        out[key] = {"return_mean": float(ret.mean()),
+                    "return_std": float(ret.std()),
+                    "velocity_return_mean": None, "n": int(ret.size),
+                    "returns": ret.tolist(),
+                    "wall_s": time.perf_counter() - t0}
+        print(f"[ranges] {tag}{key}: ret={ret.mean():.1f}±{ret.std():.1f} "
+              f"({out[key]['wall_s']:.1f} s)", flush=True)
     return out
 
 

@@ -24,9 +24,14 @@ import torch
 
 from cadm_tpu_torch.cli import matrix
 from cadm_tpu_torch.core.types import resolve_device
-from cadm_tpu_torch.models.dynamics import DynamicsState
+from cadm_tpu_torch.models.dynamics import AdamState, DynamicsState
+from cadm_tpu_torch.train.ppo import PPOState
 from cadm_tpu_torch.utils.checkpoint import from_plain
-from cadm_tpu_torch.utils.convert import adam_state_from_jax, params_from_jax
+from cadm_tpu_torch.utils.convert import (
+    adam_state_from_jax,
+    params_from_jax,
+    ppo_state_from_jax,
+)
 
 CKPT_DIR = matrix.CKPT_DIR
 OUT_ROOT = os.path.join(matrix.ROOT, "results", "torch")
@@ -76,6 +81,7 @@ def read_snapshot(dyn, path: str, device) -> DynamicsState:
     plain = torch.load(path, map_location=device, weights_only=True)
     if "buffer" in plain:   # a whole training payload
         plain = plain["state"]
+    plain.pop("ppo", None)  # a PPO cell's policy state (read_ppo_snapshot)
     template = dyn.init_state(torch.Generator(device=device).manual_seed(0))
     return from_plain(template, plain)
 
@@ -120,6 +126,21 @@ def dyn_state_from_jax(snap, device="cuda") -> DynamicsState:
     opt = (None if snap.opt_state is None
            else adam_state_from_jax(snap.opt_state[1][0], device))
     return DynamicsState(params, norm, opt, int(np.asarray(snap.updates)))
+
+
+def read_ppo_snapshot(path: str, device) -> PPOState:
+    """The PPO state a PPO cell's snapshot keeps beside its model: the
+    port's (``<cell>.pt``, under ``ppo``) or the JAX runner's
+    (``<cell>.ppo.pkl``, written by ``scripts/run_jax_cpu_cell.py``)."""
+    device = resolve_device(device)
+    if path.endswith(".pkl"):
+        return ppo_state_from_jax(read_jax_snapshot(path), device)
+    plain = torch.load(path, map_location=device, weights_only=True)["ppo"]
+    count = plain["opt_state"]["count"]
+    return PPOState(plain["params"], AdamState(
+        torch.as_tensor(count, dtype=torch.int32, device=device),
+        plain["opt_state"]["mu"], plain["opt_state"]["nu"]),
+        int(plain["updates"]))
 
 
 def random_start(trainer, dyn_state: DynamicsState, gen: torch.Generator):

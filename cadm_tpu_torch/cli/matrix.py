@@ -3,9 +3,9 @@
 Runs the matrix's cells (env family × model variant × seed, each evaluated
 on the train/moderate/extreme ranges) one after another and writes one JSON
 per cell into ``results/torch/raw/``, and the final model state into
-``results/torch/ckpt/`` (git-ignored). Resume-safe: a cell whose JSON
-exists is skipped, so the runner can be stopped and started again at any
-time. ``python -m cadm_tpu_torch.cli.results`` renders ``RESULTS_TORCH.md``
+``results/torch/ckpt/`` (git-ignored; a PPO cell's PPO state with it).
+Resume-safe: a cell whose JSON exists is skipped, so the runner can be
+stopped and started again at any time. ``python -m cadm_tpu_torch.cli.results`` renders ``RESULTS_TORCH.md``
 from the raw cells.
 
 Usage:
@@ -198,7 +198,8 @@ def card(device: torch.device) -> str:
 
 
 def run_cell(family: str, model: str, seed: int, device="cuda"):
-    """Train one cell → (its JSON record, the final model state)."""
+    """Train one cell → (its JSON record, the final model state), and for
+    a PPO cell the final PPO state after them."""
     device = resolve_device(device)
     cfg = cell_config(family, model, seed)
     _, _, _, trainer = cfg.build(device)
@@ -220,16 +221,19 @@ def run_cell(family: str, model: str, seed: int, device="cuda"):
         "wall_clock_s": wall,
         "history": out[-1],
         "card": card(device),
-    }, out[-2]
+    }, out[-2], *out[:-2]
 
 
-def save_snapshot(name: str, dyn_state) -> None:
+def save_snapshot(name: str, dyn_state, ppo_state=None) -> None:
     """The final model state as plain dicts and tensors
     (``utils/checkpoint.to_plain``), ``torch.load(weights_only=True)``
     reads it back: analysis state for the snapshot probes, not resume
-    state."""
+    state. A PPO cell's policy state goes beside it, under ``ppo``."""
     os.makedirs(CKPT_DIR, exist_ok=True)
-    torch.save(to_plain(dyn_state), os.path.join(CKPT_DIR, name + ".pt"))
+    plain = to_plain(dyn_state)
+    if ppo_state is not None:
+        plain["ppo"] = to_plain(ppo_state)
+    torch.save(plain, os.path.join(CKPT_DIR, name + ".pt"))
 
 
 # The in-flight cell's .attempts file, for the SIGTERM handler below.
@@ -324,7 +328,7 @@ def _run_one(family: str, model: str, seed: int, device) -> None:
     _CURRENT_ATTEMPT.update(path=attempt_path, before=attempts)
     print(f"[matrix] run: {name} (start attempt {attempts + 1})", flush=True)
     try:
-        result, dyn_state = run_cell(family, model, seed, device)
+        result, *states = run_cell(family, model, seed, device)
     except Exception as exc:
         _CURRENT_ATTEMPT["path"] = None
         tb = traceback.format_exc()
@@ -346,7 +350,7 @@ def _run_one(family: str, model: str, seed: int, device) -> None:
         json.dump(result, f)
     os.replace(tmp, path)
     try:
-        save_snapshot(name, dyn_state)
+        save_snapshot(name, *states)
     except Exception:
         traceback.print_exc()  # snapshots are best-effort analysis state
     if os.path.exists(attempt_path):

@@ -407,18 +407,22 @@ class PPOTrainer:
 
     @torch.no_grad()
     def evaluate(self, ppo_state: PPOState, dyn_state: DynamicsState,
-                 mode: int, gen: torch.Generator) -> Tensor:
+                 mode: int, gen: torch.Generator, start=None) -> Tensor:
         """Fresh episodes of ``eval_envs`` envs on dynamics range ``mode``
         for exactly ``env.horizon`` steps → returns (eval_envs,); each stops
-        accumulating at its env's first done. On a mesh the eval envs split
-        over dp where they divide it (else every rank runs all of them) and
-        every rank gets all the returns."""
+        accumulating at its env's first done. ``start`` (env states of this
+        rank's envs) replaces the reset, as the cross-evaluation's pinned
+        hidden scales do. On a mesh the eval envs split over dp where they
+        divide it (else every rank runs all of them) and every rank gets
+        all the returns."""
         env = self.env
         g, n = env_rows(self.mesh, gen, self.cfg.eval_envs)
+        if start is None:
+            start = env.reset(g, n, mode)
         weights = (PPOState(ppo_state.params, None),
                    DynamicsState(dyn_state.params, dyn_state.norm))
         step, _ = stepper(self, STEPS, self.graphs, "eval", mode, weights,
-                          (env.reset(g, n, mode),
+                          (start,
                            batched_history(self.model.cfg, n, env.device)), g)
         ret = torch.zeros(n, device=env.device)
         alive = torch.ones(n, device=env.device)

@@ -12,11 +12,12 @@ trainer's state carries across the same way (``ppo_state_from_jax``). Pass
 numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``); this module does
 not import jax. ``params_to_numpy`` is the way back: the port's params and
 norm statistics as the same tree of float32 numpy arrays, which the JAX
-package takes as they are.
+package takes as they are; ``ppo_state_to_numpy`` the PPO state's, laid
+out as the JAX ``PPOState`` is.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -87,3 +88,30 @@ def ppo_state_from_jax(ppo_np: Any, device="cuda") -> PPOState:
     return PPOState(_to_torch(ppo_np.params, device),
                     adam_state_from_jax(ppo_np.opt_state[1][0], device),
                     int(np.asarray(ppo_np.updates)))
+
+
+class AdamNumpy(NamedTuple):
+    """optax's ``ScaleByAdamState`` fields, as numpy."""
+    count: np.ndarray   # int32 scalar
+    mu: Any
+    nu: Any
+
+
+class PPOStateNumpy(NamedTuple):
+    """The JAX ``PPOState``'s fields as numpy: ``opt_state`` is laid out as
+    its ``chain(clip_by_global_norm, adam)`` state, ``((), (adam, ()))``."""
+    params: dict
+    opt_state: tuple
+    updates: np.ndarray  # int32 scalar
+
+
+def ppo_state_to_numpy(state: PPOState) -> PPOStateNumpy:
+    """The inverse of ``ppo_state_from_jax``: the port's ``PPOState`` as
+    float32 numpy trees and int32 counts, where the JAX package keeps them
+    (the Adam state at ``opt_state[1][0]``)."""
+    adam = state.opt_state
+    count = np.asarray(int(adam.count), np.int32)
+    return PPOStateNumpy(
+        _to_numpy(state.params),
+        ((), (AdamNumpy(count, _to_numpy(adam.mu), _to_numpy(adam.nu)), ())),
+        np.asarray(int(state.updates), np.int32))

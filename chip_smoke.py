@@ -108,7 +108,15 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    frame_skip × control steps; a second ``main`` skips the done cell with 0
    launches; ``cli.results.render`` gives the cell's row. Prints each full
    cell's planned and eval steps' time at the measured rates, and the
-   phase's seconds per cell.
+   phase's seconds per cell. Then ``half_cheetah ppo_cadm s0`` (PPO + CaDM,
+   128 envs, 2 iterations of 20 steps, the three 1000-step eval modes at
+   32 envs), held to its record the same way: its snapshot keeps the PPO
+   state, which ``ppo_state_to_numpy`` → ``ppo_state_from_jax`` gives back
+   bit for bit; then the port's side of ``scripts/cross_eval_ranges.py``
+   on that policy (``analysis.probe_ranges.ppo_sweep``: scales 0.5 and 1.5
+   and mode 0, 8 envs, 50 steps), its graphed eval against
+   ``ppo_policy`` op by op within 1e-6 relative; K1/K2 launches =
+   frame_skip × (control steps + warm-up steps) on each path.
 13. the snapshot analyses (``cadm_tpu_torch.analysis``) on phase 12's
    snapshot at the cell's full width: probe_context with the planner (one
    round of 12 steps at 256 envs) and with the random policy on mode 1,
@@ -1826,9 +1834,148 @@ def run_matrix(pgs, fk_kernel, family="half_cheetah", model="cadm"):
     return launched, snapshot
 
 
+# the PPO + CaDM cell phase 12 runs through the runner: its depth cut and
+# the port side of the cross-evaluation on its policy (scales × envs ×
+# control steps, graphed against op by op)
+PPO_MATRIX_CUT = {"n_itr": 2, "rollout_len": 20}
+PPO_CROSS_SCALES, PPO_CROSS_ENVS, PPO_CROSS_HORIZON = (0.5, 1.5), 8, 50
+
+
+def run_matrix_ppo(pgs, fk_kernel):
+    """``cli.matrix.main`` on ``half_cheetah ppo_cadm s0`` at full width
+    (128 envs, heads 4×200, policy 64×64, 200 model updates at batch 256,
+    32 eval envs on the three ranges), cut by PPO_MATRIX_CUT through a copy
+    of the runner's table. Checks the cell JSON against the reference's
+    record, the launches, that the snapshot keeps the PPO state and that
+    it goes through ``ppo_state_to_numpy`` → ``ppo_state_from_jax`` bit for
+    bit; then the port side of ``scripts/cross_eval_ranges.py`` on that
+    policy (``analysis.probe_ranges.ppo_sweep``: PPO_CROSS_SCALES and mode
+    0, PPO_CROSS_ENVS envs,
+    PPO_CROSS_HORIZON steps), graphed and op by op, the two equal. Returns
+    the launches of each path."""
+    from unittest import mock
+
+    from cadm_tpu_torch.analysis.probe_ranges import ppo_sweep
+    from cadm_tpu_torch.analysis.snapshot import (
+        cell_config,
+        read_ppo_snapshot,
+        read_snapshot,
+    )
+    from cadm_tpu_torch.cli import matrix
+    from cadm_tpu_torch.core.types import tree_leaves
+    from cadm_tpu_torch.train.ppo import PPOTrainer
+    from cadm_tpu_torch.utils.convert import (
+        ppo_state_from_jax,
+        ppo_state_to_numpy,
+    )
+
+    family, model = "half_cheetah", "ppo_cadm"
+    variants = {**matrix.MODEL_VARIANTS,
+                model: {**matrix.MODEL_VARIANTS[model], **PPO_MATRIX_CUT}}
+    argv = ["--families", family, "--models", model, "--seeds", str(SEED)]
+    name = matrix.cell_name(family, model, SEED)
+    with open(os.path.join(ROOT, "results", "raw",
+                           f"{family}__{model}__s1.json")) as f:
+        ref = json.load(f)
+    log, launched = [], []
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(matrix, "MODEL_VARIANTS", variants), \
+            mock.patch.object(matrix, "RESULTS_DIR", f"{tmp}/raw"), \
+            mock.patch.object(matrix, "CKPT_DIR", f"{tmp}/ckpt"):
+        t0 = time.perf_counter()
+        with timed(PPOTrainer, ("_collect", "evaluate"), log), \
+                counted(pgs, fk_kernel, launched):
+            matrix.main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(f"{tmp}/raw/{name}.json") as f:
+            cell = json.load(f)
+        snap_path = f"{tmp}/ckpt/{name}.pt"
+        snapshot = torch.load(snap_path, map_location="cpu", weights_only=True)
+        trainer = log[0][2][0]
+        ppo = read_ppo_snapshot(snap_path, "cuda")
+        dyn = read_snapshot(trainer.model, snap_path, "cuda")
+
+    cols = set().union(*cell["history"])
+    ref_cols = set().union(*ref["history"])
+    values = [v for row in cell["history"] for k, v in row.items()
+              if k != "collect/mean_episode_return"]
+    print(f"matrix {name}: keys {sorted(cell)}; {len(cell['history'])} rows, "
+          f"{len(cols)} history columns; card {cell['card']}; training "
+          f"{cell['wall_clock_s']:.1f} s of a {wall:.1f} s main; snapshot "
+          f"{sorted(snapshot)}, ppo {sorted(snapshot.get('ppo', {}))}")
+    expected = set(ref) | {"code_version", "loss_variant", "card"}
+    if set(cell) != expected or cols != ref_cols or not all(
+            math.isfinite(v) for v in values) or cell["card"] != card_line():
+        raise AssertionError(
+            f"matrix {name}: keys {sorted(set(cell) ^ expected)} differ, "
+            f"columns {sorted(cols ^ ref_cols)} differ, or a value is not "
+            f"finite, or card {cell['card']!r}")
+    differ = {k: (cell["config"].get(k), v) for k, v in ref["config"].items()
+              if k not in ("seed", "max_parallel_rollouts", *PPO_MATRIX_CUT)
+              and cell["config"].get(k) != v}
+    if differ:
+        raise AssertionError(f"matrix {name}: config differs {differ}")
+    if not {"params", "norm", "ppo"} <= set(snapshot):
+        raise AssertionError(f"matrix {name}: the snapshot keeps no PPO "
+                             f"state: {sorted(snapshot)}")
+    back = ppo_state_from_jax(ppo_state_to_numpy(ppo), "cuda")
+    leaves = lambda st: (tree_leaves(st.params) + tree_leaves(  # noqa: E731
+        st.opt_state.mu) + tree_leaves(st.opt_state.nu) + [st.opt_state.count])
+    same = all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(ppo)))
+    per_itr = trainer.cfg.ppo_epochs * trainer.cfg.minibatches
+    print(f"matrix {name}: PPO state {ppo.updates} minibatch steps, Adam "
+          f"count {int(ppo.opt_state.count)}; ppo_state_to_numpy → "
+          f"ppo_state_from_jax bit for bit: {same}")
+    if not same or back.updates != ppo.updates or \
+            ppo.updates != PPO_MATRIX_CUT["n_itr"] * per_itr:
+        raise AssertionError(f"matrix {name}: the PPO state's round trip "
+                             f"differs or its count {ppo.updates} is wrong")
+    check_launches(f"matrix {name}", launched, trainer.env.frame_skip,
+                   ppo_control_steps(log))
+    paths = {f"matrix {family} {model}": launched}
+
+    # the port side of the cross-evaluation on this policy
+    cfg = cell_config(name, eval_envs=PPO_CROSS_ENVS,
+                      env_horizon=PPO_CROSS_HORIZON)
+    env, _, _, cross_tr = cfg.build("cuda")
+    sweeps = {}
+    for graph in (True, False):
+        tag = f"cross-eval {name} {'graphed' if graph else 'op by op'}"
+        t0, launched = time.perf_counter(), []
+        with counted(pgs, fk_kernel, launched):
+            sweeps[graph] = ppo_sweep(cross_tr, ppo.params, dyn,
+                                      PPO_CROSS_SCALES, graph=graph,
+                                      tag=tag + " ")
+            torch.cuda.synchronize()
+        runs = len(PPO_CROSS_SCALES) + 1
+        print(f"{tag}: {runs} runs of {PPO_CROSS_HORIZON} steps at "
+              f"{PPO_CROSS_ENVS} envs in {time.perf_counter() - t0:.1f} s")
+        check_launches(tag, launched, env.frame_skip,
+                       runs * PPO_CROSS_HORIZON)
+        paths[tag] = launched
+    worst = max(float(np.max(np.abs(np.subtract(
+        sweeps[True][k]["returns"], sweeps[False][k]["returns"]))
+        / np.maximum(np.abs(sweeps[False][k]["returns"]), 1.0)))
+        for k in sweeps[False])
+    bits = all(sweeps[True][k]["returns"] == sweeps[False][k]["returns"]
+               for k in sweeps[False])
+    print(f"cross-eval {name}: graphed against op by op, largest relative "
+          f"return difference {worst:.3g} (bit for bit: {bits}); returns "
+          + ", ".join(f"{k} {r['return_mean']:.2f}"
+                      for k, r in sweeps[True].items()))
+    if worst > 1e-6 or sorted(sweeps[True]) != sorted(
+            [str(s) for s in PPO_CROSS_SCALES] + ["mode0"]):
+        raise AssertionError(f"cross-eval {name}: graphed and op by op "
+                             f"differ by {worst} relative")
+    return paths
+
+
 def run_matrices(pgs, fk_kernel):
-    """Phase 12 on each of MATRIX_CELLS, timed: the launches of each path,
-    and the cheetah CaDM's snapshot (phase 13 reads it)."""
+    """Phase 12 on each of MATRIX_CELLS and the PPO + CaDM cell, timed: the
+    launches of each path, and the cheetah CaDM's snapshot (phase 13 reads
+    it)."""
     paths, seconds = {}, {}
     for family, model in MATRIX_CELLS:
         t0 = time.perf_counter()
@@ -1837,6 +1984,9 @@ def run_matrices(pgs, fk_kernel):
         seconds[family, model] = time.perf_counter() - t0
         if (family, model) == ("half_cheetah", "cadm"):
             snapshot = snap
+    t0 = time.perf_counter()
+    paths.update(run_matrix_ppo(pgs, fk_kernel))
+    seconds["half_cheetah", "ppo_cadm"] = time.perf_counter() - t0
     print("phase 12 seconds: " + ", ".join(
         f"{f} {m} {s:.1f}" for (f, m), s in seconds.items()))
     return paths, snapshot

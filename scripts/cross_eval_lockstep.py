@@ -20,6 +20,13 @@ parity tests it imports both packages.
         --n-envs 4 --steps 1000
 
 About 1.6 s a step at 4 envs on 4 cores, after ≈ 30 s of compiling.
+
+A PPO + CaDM cell (``--cell half_cheetah__ppo_cadm__s4 --trained-by
+port|jax``, the npz of ``cross_eval_ranges.py --side export``) runs
+``PPOLockstep``: the JAX package drives its eval policy, the port acts on
+the same obs and history and steps the JAX state with the JAX action, and
+the summary adds each env's episode sum of the port's reward minus the JAX
+package's on those same states and actions.
 """
 import argparse
 import dataclasses
@@ -47,7 +54,10 @@ from cadm_tpu_torch.core.types import batched_history  # noqa: E402
 from cadm_tpu_torch.models.dynamics import DynamicsState, NormStats  # noqa: E402
 from cadm_tpu_torch.utils.convert import params_from_jax  # noqa: E402
 from scripts.run_matrix import FAMILY_BASE, MODEL_VARIANTS  # noqa: E402
-from tests.torch_analysis_common import env_states_to_torch  # noqa: E402
+from tests.torch_analysis_common import (  # noqa: E402
+    env_states_to_torch,
+    hists_to_torch,
+)
 
 FLAG = 1e-3   # an action or obs this far apart is printed and explained
 
@@ -59,7 +69,7 @@ def as_torch(x):
 class Lockstep:
     def __init__(self, cell: str):
         family, model, seed = cross.cell_kwargs(cell)
-        params_np, norm_np, _ = cross.read_npz(cell)
+        params_np, norm_np, _, _ = cross.read_npz(cell)
         cfg = ExperimentConfig(**FAMILY_BASE[family], **MODEL_VARIANTS[model],
                                seed=seed, eval_modes=(0, 1, 2))
         self.jenv, self.jm, self.jp, _ = cfg.build()
@@ -187,16 +197,105 @@ class Lockstep:
               f"({time.time() - t0:.0f} s)", flush=True)
 
 
+class PPOLockstep:
+    """The lockstep of a PPO + CaDM policy (``cross.is_ppo``): the JAX
+    package drives its eval policy (the clipped deterministic mean of its
+    trainer's ``_dist`` on concat(obs, z)); at every step the port acts on
+    the same obs and JAX-pushed history, and steps the JAX env state with
+    the JAX action. Beside the largest differences it sums, per env, the
+    port's reward minus the JAX package's on the same states and actions:
+    what the two physics give a whole episode apart, with the acting held
+    equal."""
+
+    def __init__(self, cell: str, trained_by: str):
+        family, model, seed = cross.cell_kwargs(cell)
+        params_np, norm_np, policy_np, _ = cross.read_npz(
+            f"{cell}__{trained_by}")
+        cfg = ExperimentConfig(**{**FAMILY_BASE[family],
+                                  **MODEL_VARIANTS[model]},
+                               seed=seed, eval_modes=(0, 1, 2))
+        self.jenv, self.jm, _, jtr = cfg.build()
+        js = JaxState(
+            params=jax.tree.map(jnp.asarray, params_np), opt_state=None,
+            norm=JaxNorm(**{k: jnp.asarray(v) for k, v in norm_np.items()}),
+            updates=jnp.asarray(0, jnp.int32))
+        jpolicy = jax.tree.map(jnp.asarray, policy_np)
+        self.env, self.m, _, self.tr = cell_config(cell).build("cpu")
+        params, norm = params_from_jax(params_np, NormStats(**norm_np), "cpu")
+        self.state = DynamicsState(params, norm)
+        self.policy = params_from_jax(policy_np, NormStats(**norm_np),
+                                      "cpu")[0]
+        self.ctx = jax.jit(lambda h: self.jm.context_from_history(
+            js.params, js.norm, h))
+        self.push = jax.jit(lambda h, o, d, a: self.jm.push_history(
+            js.params, js.norm, h, o, d, a))
+        self.act = jax.jit(lambda o, z: jnp.clip(jtr._dist(
+            jpolicy, jnp.concatenate([o, z], axis=-1))[0], -1.0, 1.0))
+        self.step = jax.jit(jax.vmap(lambda s, a: self.jenv.step(s, a, 0)))
+
+    def run(self, scale: float, n: int, steps: int) -> None:
+        key = jax.random.key(100 + int(scale * 10))
+        js = jax.vmap(lambda k: self.jenv.reset(k, 0))(
+            jax.random.split(jax.random.split(key)[0], n))
+        js = dataclasses.replace(js, params=jax.tree.map(
+            lambda x: jnp.full_like(x, scale), js.params))
+        jh = jax_history(self.jm.cfg, n)
+        worst = dict.fromkeys(("z", "action", "obs", "reward"), 0.0)
+        ret, dret, first, t0 = np.zeros(n), np.zeros(n), None, time.time()
+        for t in range(steps):
+            zj = self.ctx(jh)
+            aj = self.act(js.obs, zj)
+            obs_z = self.tr._obs_z(self.state, as_torch(js.obs),
+                                   hists_to_torch(jh))
+            at = torch.clamp(self.tr._dist(self.policy, obs_z)[0], -1.0, 1.0)
+            zt = obs_z[:, self.env.obs_dim:]
+            _, tobs, trew, _ = self.env.step(
+                env_states_to_torch(self.env, js), as_torch(aj),
+                torch.Generator().manual_seed(0), 0)
+            prev = js
+            js, jobs, jrew, _ = self.step(js, aj)
+            do = np.abs(tobs.numpy() - np.asarray(jobs)).max(1)
+            for name, diff in (
+                    ("z", np.abs(zt.numpy() - np.asarray(zj))),
+                    ("action", np.abs(at.numpy() - np.asarray(aj))),
+                    ("obs", do),
+                    ("reward", np.abs(trew.numpy() - np.asarray(jrew)))):
+                worst[name] = max(worst[name], float(diff.max()))
+            for e in np.flatnonzero(do > FLAG):
+                first = (t, e) if first is None else first
+                alone = self.step(jax.tree.map(lambda x: x[e:e + 1], prev),
+                                  aj[e:e + 1])[1]
+                i = int(np.argmax(np.abs(tobs[e].numpy()
+                                         - np.asarray(jobs)[e])))
+                print(f"  step {t} env {e}: obs {i} port {tobs[e, i]:.7g}, "
+                      f"jax in the batch {np.asarray(jobs)[e, i]:.7g}, jax "
+                      f"stepping this env alone {np.asarray(alone)[0, i]:.7g}",
+                      flush=True)
+            ret += np.asarray(jrew)
+            dret += trew.numpy() - np.asarray(jrew)
+            jh = self.push(jh, prev.obs, jobs - prev.obs, aj)
+        print(f"scale {scale}: {steps} steps × {n} envs, largest differences "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+              + f"; first obs more than {FLAG} apart at (step, env) {first}; "
+              f"port − JAX reward summed over the episode on the same states "
+              f"and actions {np.round(dret, 4).tolist()}; JAX returns "
+              f"{np.round(ret, 1).tolist()} ({time.time() - t0:.0f} s)",
+              flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--cell", default=cross.CELL)
+    ap.add_argument("--trained-by", default="port", choices=["port", "jax"],
+                    help="a PPO cell: whose policy (its npz)")
     ap.add_argument("--scales", type=float, nargs="*", default=[0.5])
     ap.add_argument("--n-envs", type=int, default=4)
     ap.add_argument("--steps", type=int, default=150)
     args = ap.parse_args(argv)
-    lock = Lockstep(args.cell)
+    lock = (PPOLockstep(args.cell, args.trained_by) if cross.is_ppo(args.cell)
+            else Lockstep(args.cell))
     for scale in args.scales:
         lock.run(scale, args.n_envs, args.steps)
 

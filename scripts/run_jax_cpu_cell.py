@@ -11,7 +11,10 @@ same name (``python -m cadm_tpu_torch.cli.results --raw results/torch/raw
 
 Writes ``results/torch/jax_cpu/<cell>.json`` (the runner's keys plus
 ``card: "cpu"``) and the runner's ``.pkl`` snapshot under the git-ignored
-``results/torch/ckpt/jax_cpu/``; nothing under ``results/raw/``. A cell
+``results/torch/ckpt/jax_cpu/``; nothing under ``results/raw/``. A PPO
+cell also keeps its final ``PPOState`` there, as ``<cell>.ppo.pkl`` (a
+numpy pytree, the runner's snapshot format), which the runner drops:
+``scripts/cross_eval_ranges.py --side export --trained-by jax`` reads it. A cell
 whose JSON exists is not trained again, as the runner skips a done cell.
 With ``--probe-context`` it then runs ``scripts/probe_context.py
 --random-policy --n-envs 128`` on the snapshot (2 rounds: 256 windows, as
@@ -37,6 +40,36 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
                       os.path.join(ROOT, ".jax_cache"))
 sys.path.insert(0, ROOT)
+
+
+def keep_ppo_state() -> dict:
+    """Wrap ``PPOTrainer.train`` so that the runner's ``run_cell``, which
+    returns the model state only, leaves the final ``PPOState`` in the
+    returned dict."""
+    from cadm_tpu.train.ppo import PPOTrainer
+
+    kept: dict = {}
+    train = PPOTrainer.train
+
+    def train_keeping_state(self, *args, **kwargs):
+        out = train(self, *args, **kwargs)
+        kept["ppo_state"] = out[0]
+        return out
+
+    PPOTrainer.train = train_keeping_state
+    return kept
+
+
+def save_ppo_state(name: str, ppo_state) -> None:
+    """Pickle ``ppo_state`` as a numpy pytree beside the model snapshot."""
+    import pickle
+
+    import jax
+    import numpy as np
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    with open(os.path.join(CKPT_DIR, name + ".ppo.pkl"), "wb") as f:
+        pickle.dump(jax.tree.map(np.asarray, ppo_state), f)
 
 
 def main(argv=None) -> None:
@@ -67,6 +100,7 @@ def main(argv=None) -> None:
     # TPU row budget, measured
     rm.probed_budget = lambda family, model: None
     rm.CKPT_DIR = CKPT_DIR
+    kept = keep_ppo_state()
 
     name = rm.cell_name(args.family, args.model, args.seed)
     path = os.path.join(OUT_DIR, name + ".json")
@@ -80,6 +114,8 @@ def main(argv=None) -> None:
         with open(path, "w") as f:
             json.dump(record, f)
         rm.save_snapshot(name, dyn_state)
+        if "ppo_state" in kept:
+            save_ppo_state(name, kept["ppo_state"])
         print(f"[jax_cpu] {name}: trained in {record['wall_clock_s']:.1f} s "
               f"({time.time() - t0:.1f} s with the build) -> {path}",
               flush=True)

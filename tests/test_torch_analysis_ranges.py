@@ -7,6 +7,9 @@ and actions rebuilt from its per-scale key: returns and velocity returns
 within 1e-4 relative. Also that the pin replaces every params leaf
 (CrippleAnt's actuator mask included, as the script's ``full_like``).
 """
+import argparse
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,3 +127,155 @@ def test_cross_eval_npz_layout_and_the_two_se_rule():
     pool = cross.pooled({"runs": dict(jax_["runs"], **{"4 plain-kernels":
                                                         plain})})["1.0"]
     assert pool["n"] == 8 and pool["return_mean"] == pytest.approx(3.5)
+
+
+# ------------------------------------------- the PPO cross-evaluation --
+PPO_CELL = "half_cheetah__ppo_cadm__s4"
+
+
+def toy_ppo_cheetah():
+    """A toy PPO + CaDM cheetah trainer on the CPU and its initial PPO and
+    model states (2 envs)."""
+    from cadm_tpu_torch.cli.presets import ExperimentConfig
+
+    cfg = ExperimentConfig(trainer="ppo", env="half_cheetah", model="cadm",
+                           hidden=(16, 16), policy_hidden=(16, 16), n_envs=2,
+                           eval_envs=2, env_horizon=3, buffer_capacity=8)
+    env, _, _, tr = cfg.build("cpu")
+    gen = torch.Generator().manual_seed(0)
+    *_, ps, dyn = tr.init(gen)
+    return env, tr, ps, dyn, gen
+
+
+def test_ppo_policy_acts_as_the_trainers_eval_step():
+    """``ppo_policy`` under ``make_rollout`` takes the actions
+    ``PPOTrainer._eval_step`` takes from the same weights and start state,
+    bit for bit, and the rollout's returns are ``evaluate``'s from those
+    start states."""
+    env, tr, ps, dyn, gen = toy_ppo_cheetah()
+    start = probe_ranges.pinned(env.reset(gen, 2, 0), 0.5)
+    assert torch.equal(start.params.mass_scale, torch.full((2,), 0.5))
+    policy = probe_ranges.ppo_policy(tr, ps, dyn)
+    states, hists = start, policy["init"](2)
+    s2, h2 = start, policy["init"](2)
+    for t in range(3):
+        act, hists = policy["act"](states, hists, gen, t)
+        prev = states.obs
+        states, obs, _, _ = env.step(states, act, gen, 0)
+        hists = policy["post"](hists, prev, obs, act)
+        s2, h2, act2, obs2, _, _ = tr._eval_step(ps, dyn, s2, h2, gen, 0)
+        assert torch.equal(act, act2) and torch.equal(obs, obs2)
+        assert torch.equal(hists.obs, h2.obs) and act.abs().max() <= 1
+    ret, _ = probe_ranges.make_rollout(env, 2, policy)(0.5, gen, start)
+    assert torch.equal(ret, tr.evaluate(ps, dyn, 0, gen, start=start))
+    # the cross-evaluation's sweep: the trainer's eval and the rollout of
+    # ppo_policy give the same episodes, pinned and on mode 0
+    sweeps = [probe_ranges.ppo_sweep(tr, ps.params, dyn, [0.5], graph=g)
+              for g in (True, False)]
+    assert sorted(sweeps[0]) == ["0.5", "mode0"]
+    for k, rec in sweeps[0].items():
+        assert rec["returns"] == sweeps[1][k]["returns"] and rec["n"] == 2
+
+
+def test_cross_eval_ppo_npz_holds_the_policy_tree(tmp_path, monkeypatch):
+    """``--side export`` of a PPO cell, from the port's snapshot (the
+    matrix runner's, ``ppo`` beside the model) and from the JAX runner's
+    two pickles: the npz gives back the model's params and norm and the
+    PPO params tree bit for bit; ``--side port`` on the CPU then runs the
+    pinned scales and mode 0 at the cell's width."""
+    import optax
+
+    import scripts.cross_eval_ranges as cross
+    import scripts.run_jax_cpu_cell as jax_cell
+    import scripts.run_matrix as rm
+    from cadm_tpu.cli.presets import ExperimentConfig as JaxConfig
+    from cadm_tpu.models.nets import mlp_init as jax_mlp_init
+    from cadm_tpu.train.ppo import PPOState as JaxPPOState
+    from cadm_tpu_torch.analysis.snapshot import cell_config
+    from cadm_tpu_torch.cli import matrix
+    from cadm_tpu_torch.core.types import tree_leaves
+    from cadm_tpu_torch.models.dynamics import AdamState
+    from cadm_tpu_torch.models.nets import mlp_init
+    from cadm_tpu_torch.train.ppo import PPOState
+
+    monkeypatch.setattr(cross, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(matrix, "CKPT_DIR", str(tmp_path / "ckpt"))
+    _, model, _, tr = cell_config(PPO_CELL).build("cpu")
+    gen = torch.Generator().manual_seed(1)
+    dyn = model.init_state(gen)
+    params = {"policy": mlp_init(gen, [tr._pol_in, 64, 64, 6]),
+              "log_std": torch.full((6,), -0.5),
+              "value": mlp_init(gen, [tr._pol_in, 64, 64, 1])}
+    matrix.save_snapshot(PPO_CELL, dyn, PPOState(
+        params, AdamState.zeros_like(params), 3))
+    cross.main(["--side", "export", "--cell", PPO_CELL, "--ckpt",
+                str(tmp_path / "ckpt" / f"{PPO_CELL}.pt")])
+    p, norm, policy, _ = cross.read_npz(f"{PPO_CELL}__port")
+    assert sorted(policy) == ["log_std", "policy", "value"]
+    for ours, ref in ((p, dyn.params), (policy, params),
+                      (norm, dyn.norm.__dict__)):
+        a, b = jax.tree.leaves(ours), tree_leaves(ref)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y.numpy())
+
+    # the JAX runner's pickles of a JAX-trained cell
+    jcfg = dict(rm.FAMILY_BASE["half_cheetah"], **rm.MODEL_VARIANTS["ppo_cadm"])
+    _, jmodel, _, jtr = JaxConfig(**jcfg).build()
+    k1, k2, k3 = jax.random.split(jax.random.key(2), 3)
+    jparams = {"policy": jax_mlp_init(k1, [jtr._pol_in, 64, 64, 6]),
+               "log_std": jnp.full((6,), -0.5),
+               "value": jax_mlp_init(k2, [jtr._pol_in, 64, 64, 1])}
+    jdyn = jmodel.init_state(k3)
+    monkeypatch.setattr(rm, "CKPT_DIR", str(tmp_path / "jax"))
+    monkeypatch.setattr(jax_cell, "CKPT_DIR", str(tmp_path / "jax"))
+    rm.save_snapshot(PPO_CELL, jdyn)
+    jax_cell.save_ppo_state(PPO_CELL, JaxPPOState(
+        params=jparams, opt_state=jtr.tx.init(jparams),
+        updates=jnp.asarray(0, jnp.int32)))
+    assert isinstance(jtr.tx, optax.GradientTransformation)
+    cross.main(["--side", "export", "--cell", PPO_CELL, "--trained-by", "jax",
+                "--ckpt", str(tmp_path / "jax" / f"{PPO_CELL}.pkl")])
+    p, norm, policy, _ = cross.read_npz(f"{PPO_CELL}__jax")
+    for ours, ref in ((p, jdyn.params), (policy, jparams)):
+        a, b = jax.tree.leaves(ours), jax.tree.leaves(ref)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, np.asarray(y))
+
+    cross.main(["--side", "port", "--cell", PPO_CELL, "--device", "cpu",
+                "--n-envs", "2", "--horizon", "2", "--scales", "0.5"])
+    with open(tmp_path / f"{PPO_CELL}__port.port.json") as f:
+        side = json.load(f)
+    assert side["trained_by"] == "port" and side["horizon"] == 2
+    runs = side["runs"]["2 cpu"]
+    assert sorted(runs) == ["0.5", "mode0"]
+    for rec in runs.values():
+        assert rec["n"] == 2 and np.isfinite(rec["returns"]).all()
+        assert rec["device"] == "cpu"
+
+
+def test_cross_eval_table_sets_each_policy_beside_the_other(tmp_path,
+                                                            monkeypatch):
+    """``--side table``: each policy by each package (pooled), and within
+    a package each pair of policies against the 2-SE bound."""
+    import scripts.cross_eval_ranges as cross
+
+    monkeypatch.setattr(cross, "OUT_DIR", str(tmp_path))
+
+    def side(returns):
+        return {"runs": {"4": {"mode0": {"return_mean": float(np.mean(
+            returns)), "n": len(returns), "returns": returns}}}}
+
+    cells = {"half_cheetah__ppo_cadm__s4__port": ([10.0, 12.0], [11.0, 13.0]),
+             "half_cheetah__ppo_cadm__s3__jax": ([0.0, 2.0], [1.0, 3.0])}
+    for name, (port, jax_) in cells.items():
+        cross.write_side(f"{name}.port", side(port))
+        cross.write_side(f"{name}.jax", side(jax_))
+    out = cross.table(argparse.Namespace(cell="half_cheetah__ppo_cadm"))
+    assert out["policies"]["half_cheetah__ppo_cadm__s4__port"]["jax"][
+        "mode0"]["mean"] == 12.0
+    pair = out["pairs"]["half_cheetah__ppo_cadm__s3__jax vs "
+                        "half_cheetah__ppo_cadm__s4__port, evaluated by port"]
+    assert pair["mode0"]["delta"] == -10.0 and not pair["mode0"]["agree"]
+    assert (tmp_path / "half_cheetah__ppo_cadm.table.json").exists()

@@ -23,6 +23,7 @@ import scripts.make_results as mr  # noqa: E402
 import scripts.run_matrix as rm  # noqa: E402
 from cadm_tpu.cli.presets import ExperimentConfig as JaxExperimentConfig  # noqa: E402
 from cadm_tpu.models.dynamics import LOSS_VARIANT as JAX_LOSS_VARIANT  # noqa: E402
+from cadm_tpu_torch.analysis.snapshot import read_ppo_snapshot  # noqa: E402
 from cadm_tpu_torch.cli import matrix, results  # noqa: E402
 from cadm_tpu_torch.models.dynamics import LOSS_VARIANT  # noqa: E402
 
@@ -228,6 +229,17 @@ def test_a_toy_cell_records_what_the_reference_records(
     snap = torch.load(os.path.join(matrix.CKPT_DIR, name + ".pt"),
                       weights_only=True)
     assert set(snap) >= {"params", "norm"}
+    if model.startswith("ppo"):
+        # the PPO state beside the model, as the cross-evaluation reads it
+        assert set(snap) >= {"params", "norm", "ppo"}
+        assert set(snap["ppo"]) == {"params", "opt_state", "updates"}
+        assert snap["ppo"]["updates"] == 2 * 1 * 2
+        ppo = read_ppo_snapshot(os.path.join(matrix.CKPT_DIR, name + ".pt"),
+                                "cpu")
+        assert torch.equal(ppo.params["log_std"],
+                           snap["ppo"]["params"]["log_std"])
+    else:
+        assert "ppo" not in snap
 
 
 # ---------------------------------------------- (iii b) the committed cells --

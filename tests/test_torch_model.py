@@ -14,10 +14,16 @@ from cadm_tpu.core.types import History as JaxHistory
 from cadm_tpu.models.dynamics import Dynamics as JaxDynamics
 from cadm_tpu.models.dynamics import DynamicsConfig as JaxConfig
 from cadm_tpu.models.dynamics import NormStats as JaxNorm
-from cadm_tpu_torch.core.types import batched_history
+from cadm_tpu_torch.core.types import batched_history, tree_leaves
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
 from cadm_tpu_torch.models.nets import member
-from cadm_tpu_torch.utils.convert import NORM_FIELDS, params_from_jax, params_to_numpy
+from cadm_tpu_torch.utils.convert import (
+    NORM_FIELDS,
+    params_from_jax,
+    params_to_numpy,
+    ppo_state_from_jax,
+    ppo_state_to_numpy,
+)
 
 # float32 matmul chains of ≤ 5 layers summed in another order than XLA's
 ATOL = 1e-5
@@ -86,6 +92,55 @@ def test_params_round_trip_jax_port_numpy_jax_bit_for_bit():
                                       for k, v in back_norm.items()}),
                      jax.tree.map(lambda x: x[0], back["fwd"]), obs, act, z)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+def test_ppo_state_round_trip_port_numpy_port_bit_for_bit():
+    """``ppo_state_to_numpy`` inverts ``ppo_state_from_jax``: a JAX PPO
+    state after three Adam steps (count, mu and nu all nonzero) comes back
+    from the port as the same arrays where the JAX ``PPOState`` keeps them,
+    and ``ppo_state_from_jax`` of that is the port's state again."""
+    import optax
+
+    from cadm_tpu.models.nets import mlp_init as jax_mlp_init
+    from cadm_tpu.train.ppo import PPOState as JaxPPOState
+
+    k1, k2 = jax.random.split(jax.random.key(3))
+    params = {"policy": jax_mlp_init(k1, [OBS + 4, 16, 16, ACT]),
+              "log_std": jnp.full((ACT,), -0.5, jnp.float32),
+              "value": jax_mlp_init(k2, [OBS + 4, 16, 16, 1])}
+    tx = optax.chain(optax.clip_by_global_norm(0.5), optax.adam(3e-4))
+    opt = tx.init(params)
+    rng = np.random.RandomState(5)
+    for _ in range(3):
+        grads = jax.tree.map(
+            lambda x: jnp.asarray(rng.randn(*x.shape).astype(np.float32)),
+            params)
+        updates, opt = tx.update(grads, opt, params)
+        params = optax.apply_updates(params, updates)
+    jstate = JaxPPOState(params=params, opt_state=opt,
+                         updates=jnp.asarray(3, jnp.int32))
+    port = ppo_state_from_jax(jax.tree.map(np.asarray, jstate), "cpu")
+    back = ppo_state_to_numpy(port)
+    adam, jadam = back.opt_state[1][0], jstate.opt_state[1][0]
+    assert int(back.updates) == 3 and int(adam.count) == int(jadam.count) == 3
+    assert back.updates.dtype == adam.count.dtype == np.int32
+    for ours, ref in ((back.params, jstate.params), (adam.mu, jadam.mu),
+                      (adam.nu, jadam.nu)):
+        flat, tree = jax.tree.flatten(ref)
+        flat_back, tree_back = jax.tree.flatten(ours)
+        assert tree_back == tree
+        for a, b in zip(flat, flat_back):
+            assert b.dtype == np.float32
+            np.testing.assert_array_equal(b, np.asarray(a))
+    again = ppo_state_from_jax(back, "cpu")
+    assert again.updates == port.updates == 3
+    assert again.opt_state.count.dtype == torch.int32
+    assert torch.equal(again.opt_state.count, port.opt_state.count)
+    for a, b in zip(tree_leaves(again.params) + tree_leaves(again.opt_state.mu)
+                    + tree_leaves(again.opt_state.nu),
+                    tree_leaves(port.params) + tree_leaves(port.opt_state.mu)
+                    + tree_leaves(port.opt_state.nu)):
+        assert torch.equal(a, b)
 
 
 def test_get_context_matches_jax():
