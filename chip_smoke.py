@@ -116,7 +116,12 @@ Phases, one or more lines each, any failure raising (exit code != 0):
    on that policy (``analysis.probe_ranges.ppo_sweep``: scales 0.5 and 1.5
    and mode 0, 8 envs, 50 steps), its graphed eval against
    ``ppo_policy`` op by op within 1e-6 relative; K1/K2 launches =
-   frame_skip × (control steps + warm-up steps) on each path.
+   frame_skip × (control steps + warm-up steps) on each path. Then the
+   port sides of the C3 probes at that cell's width
+   (``run_ppo_probes``): ``scripts/probe_first_itr.py`` for 2 iterations
+   of 2 seeds and ``scripts/probe_common_state.py``'s port-trained state
+   at k* = 0 with the port's pieces on it, 2 repetitions, every row and
+   outcome finite, launches gated the same way.
 13. the snapshot analyses (``cadm_tpu_torch.analysis``) on phase 12's
    snapshot at the cell's full width: probe_context with the planner (one
    round of 12 steps at 256 envs) and with the random policy on mode 1,
@@ -1972,10 +1977,81 @@ def run_matrix_ppo(pgs, fk_kernel):
     return paths
 
 
+# the C3 probes' port sides phase 12 runs at the PPO + CaDM cell's width:
+# iterations and seeds of scripts/probe_first_itr.py, the common state's
+# iteration k* and repetitions of scripts/probe_common_state.py
+PROBE_ITRS, PROBE_SEEDS, PROBE_KSTAR, PROBE_REPS = 2, 2, 0, 2
+
+
+def run_ppo_probes(pgs, fk_kernel):
+    """The port sides of the two C3 probes on ``half_cheetah ppo_cadm`` at
+    full width, in this process: ``probe_first_itr.py --side port --itrs
+    PROBE_ITRS --seeds PROBE_SEEDS``, then ``probe_common_state.py``'s
+    port-trained state at k* = PROBE_KSTAR and the port's pieces on it,
+    PROBE_REPS repetitions. Checks every row and outcome finite, the ring's
+    size per iteration, the state's ring, and K1/K2 launches = frame_skip ×
+    (control steps + warm-up steps) on each; returns the launches of each
+    path."""
+    from cadm_tpu_torch.train.ppo import PPOTrainer
+    from scripts import probe_common_state as cs
+    from scripts import probe_first_itr as fi
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        first, common = f"{tmp}/first_itr", f"{tmp}/common_state"
+        for tag, runs in (
+                ("probe first_itr", [["--side", "port", "--itrs",
+                                      str(PROBE_ITRS), "--seeds",
+                                      str(PROBE_SEEDS), "--out-dir", first]]),
+                ("probe common_state", [
+                    ["--side", side, "--itr", str(PROBE_KSTAR), "--reps",
+                     str(PROBE_REPS), "--states", "port", "--state-dir",
+                     common, "--out-dir", common]
+                    for side in ("port-state", "port")])):
+            log, launched = [], []
+            gc.collect()
+            t0 = time.perf_counter()
+            with timed(PPOTrainer, ("_collect",), log), \
+                    counted(pgs, fk_kernel, launched):
+                for argv in runs:
+                    (fi if tag.endswith("first_itr") else cs).main(argv)
+                torch.cuda.synchronize()
+            print(f"{tag}: {len(log)} collects in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check_launches(tag, launched, log[0][2][0].env.frame_skip,
+                           ppo_control_steps(log))
+            paths[tag] = launched
+        cell = "half_cheetah__ppo_cadm"
+        with open(fi.side_path(first, cell, PROBE_ITRS, "port")) as f:
+            rows = json.load(f)["rows"]
+        sizes = [r["ring_size"] for r in rows]
+        with open(os.path.join(common,
+                               f"{cell}.k{PROBE_KSTAR}.port.json")) as f:
+            out = json.load(f)["states"]["port"]
+        state, meta = cs.load_state(os.path.join(
+            common, f"{cell}.port.k{PROBE_KSTAR}.npz"))
+    values = [r[m] for r in rows for m in fi.METRICS + fi.STATE_METRICS] + [
+        v for piece in out["rows"].values() for row in piece
+        for v in row.values()]
+    print(f"probe first_itr: {len(rows)} rows, ring sizes {sizes}; probe "
+          f"common_state: state ring {meta['ring']}, "
+          + "; ".join(f"{p} {out['rows'][p][0]}" for p in cs.PIECES))
+    want = [256 * (i + 1) for _ in range(PROBE_SEEDS)
+            for i in range(PROBE_ITRS)]
+    if sizes != want or not all(math.isfinite(v) for v in values) or \
+            meta["ring"] != [256 * (PROBE_KSTAR + 1)] * 2 or any(
+                len(out["rows"][p]) != PROBE_REPS for p in cs.PIECES) or \
+            state["traj"]["reward"].shape != (256, 128):
+        raise AssertionError("the C3 probes' port sides: ring sizes "
+                             f"{sizes}, state ring {meta['ring']} or a value "
+                             "not finite or a piece short")
+    return paths
+
+
 def run_matrices(pgs, fk_kernel):
     """Phase 12 on each of MATRIX_CELLS and the PPO + CaDM cell, timed: the
     launches of each path, and the cheetah CaDM's snapshot (phase 13 reads
-    it)."""
+    it); then the C3 probes' port sides (``run_ppo_probes``)."""
     paths, seconds = {}, {}
     for family, model in MATRIX_CELLS:
         t0 = time.perf_counter()
@@ -1987,6 +2063,9 @@ def run_matrices(pgs, fk_kernel):
     t0 = time.perf_counter()
     paths.update(run_matrix_ppo(pgs, fk_kernel))
     seconds["half_cheetah", "ppo_cadm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths.update(run_ppo_probes(pgs, fk_kernel))
+    seconds["c3", "probes"] = time.perf_counter() - t0
     print("phase 12 seconds: " + ", ".join(
         f"{f} {m} {s:.1f}" for (f, m), s in seconds.items()))
     return paths, snapshot

@@ -35,6 +35,8 @@ bootstrap value are held to the JAX package's; after the two iterations
 both metrics rows key for key, and the final policy, log_std, value and
 model params with their Adam states.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,17 +48,20 @@ from cadm_tpu.envs.rigid_base import RigidPhys as JaxPhys
 from cadm_tpu.models.dynamics import Dynamics as JaxDynamics
 from cadm_tpu.models.dynamics import DynamicsConfig as JaxConfig
 from cadm_tpu.models.dynamics import NormStats as JaxNorm
+from cadm_tpu.train.buffer import ReplayBuffer as JaxBuffer
 from cadm_tpu.train.ppo import PPOConfig as JaxPPOConfig
 from cadm_tpu.train.ppo import PPOTrainer as JaxPPOTrainer
-from cadm_tpu_torch.core.types import EnvState, History, tree_leaves
+from cadm_tpu_torch.core.types import tree_leaves
 from cadm_tpu_torch.envs.half_cheetah import HalfCheetahEnv
 from cadm_tpu_torch.envs.rigid_base import MassDampingParams, RigidPhys
-from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig, DynamicsState
+from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
 from cadm_tpu_torch.train.buffer import ReplayBuffer
 from cadm_tpu_torch.train.ppo import PPOConfig, PPOTrainer
 from cadm_tpu_torch.utils.convert import (
-    adam_state_from_jax,
-    params_from_jax,
+    buffer_from_jax,
+    dynamics_state_from_jax,
+    env_state_from_jax,
+    history_from_jax,
     ppo_state_from_jax,
 )
 
@@ -72,8 +77,10 @@ MODEL = dict(obs_dim=17, act_dim=6, hidden=(16, 16), context="encoder",
              z_dim=4, history_k=4, future_m=3, encoder_hidden=(16,))
 PPO = dict(n_envs=E, rollout_len=T, n_itr=N_ITR, policy_hidden=(16, 16),
            ppo_epochs=2, minibatches=2, model_updates_per_itr=5,
-           model_batch=8, buffer_capacity=64, eval_envs=EVAL_ENVS,
-           eval_modes=(0,))
+           model_batch=8, eval_envs=EVAL_ENVS, eval_modes=(0,))
+# the ring: room for both collects, and one that the second collect wraps
+# (24 < 2·T: the second fit draws from a ring whose oldest column is 8)
+CAPACITIES = (64, 24)
 
 
 def t(x):
@@ -93,16 +100,28 @@ class SharedPhysics:
         self.calls = []
         self.replayed = 0
         self.worst = {"qpos": 0.0, "qvel": 0.0, "act": 0.0}
+        self.steps = {}  # the port's step of each input seen, by its bytes
+
+    def restart(self) -> "SharedPhysics":
+        """A copy holding the record so far; this one starts a new one
+        (the JAX programs that call it, and the steps taken, are kept)."""
+        done = copy.copy(self)
+        self.calls, self.replayed = [], 0
+        self.worst = dict.fromkeys(self.worst, 0.0)
+        return done
 
     def jax_step_phys(self, params, phys, action):
         """The JAX env's ``step_phys``, under its vmap: one host call of
         the batch."""
         def host(ms, ds, qpos, qvel, act):
             inputs = [np.array(x) for x in (ms, ds, qpos, qvel, act)]
-            out = self.port.step_phys(
-                MassDampingParams(t(ms), t(ds)),
-                RigidPhys(t(qpos), t(qvel)), t(act))
-            result = (out.qpos.numpy(), out.qvel.numpy())
+            key = b"".join(x.tobytes() for x in inputs)
+            if key not in self.steps:   # a restarted run repeats some
+                out = self.port.step_phys(
+                    MassDampingParams(t(ms), t(ds)),
+                    RigidPhys(t(qpos), t(qvel)), t(act))
+                self.steps[key] = (out.qpos.numpy(), out.qvel.numpy())
+            result = self.steps[key]
             self.calls.append((inputs, result))
             return result
 
@@ -139,37 +158,22 @@ def jax_cheetah(physics):
 
 
 def port_states(js):
-    return EnvState(
-        phys=RigidPhys(t(js.phys.qpos), t(js.phys.qvel)), obs=t(js.obs),
-        params=MassDampingParams(t(js.params.mass_scale),
-                                 t(js.params.damping_scale)),
-        t=t(js.t), done=t(js.done))
-
-
-def port_hists(jh):
-    return History(t(jh.obs), t(jh.dobs), t(jh.act), t(jh.valid), t(jh.rnn_h))
-
-
-def port_buffer(jb):
-    return ReplayBuffer(t(jb.obs), t(jb.act), t(jb.next_obs), t(jb.done),
-                        t(jb.ep_step), t(jb.bad), int(jb.ptr), int(jb.size))
-
-
-def port_dyn(jd):
-    params, norm = params_from_jax(np_tree(jd.params), np_tree(jd.norm), "cpu")
-    return DynamicsState(params, norm,
-                         adam_state_from_jax(np_tree(jd.opt_state[1][0]),
-                                             "cpu"), int(jd.updates))
+    return env_state_from_jax(js, "cpu")
 
 
 class JaxResets:
     """The fresh states the JAX env auto-resets to, per env: ``reset(k)``
     of the env's current key, which moves on to ``split(k, 3)[2]`` at each
-    of its resets."""
+    of its resets. ``shared``: another chain's, whose programs this one
+    takes over."""
 
-    def __init__(self, jenv, keys):
-        self._reset = jax.jit(jax.vmap(lambda k: jenv.reset(k, 0)))
-        self._next = jax.jit(jax.vmap(lambda k: jax.random.split(k, 3)[2]))
+    def __init__(self, jenv, keys, shared=None):
+        if shared is None:
+            self._reset = jax.jit(jax.vmap(lambda k: jenv.reset(k, 0)))
+            self._next = jax.jit(jax.vmap(
+                lambda k: jax.random.split(k, 3)[2]))
+        else:
+            self._reset, self._next = shared._reset, shared._next
         self.keys = keys
         self.fresh = port_states(self._reset(keys))
         self.count = 0
@@ -249,14 +253,21 @@ def snapshot(out):
     return states, hists, buf, dict(traj), last
 
 
-def train_both():
-    """Both trainers' two iterations → (JAX, port), each (ppo state, model
-    state, metrics rows, per-collect snapshots), and the shared physics and
-    the reset chain."""
-    physics = SharedPhysics()
+def train_both(capacity, shared=None, eval_modes=PPO["eval_modes"]):
+    """Both trainers' two iterations on a ring of ``capacity`` columns →
+    (JAX, port), each (ppo state, model state, metrics rows, per-collect
+    snapshots), and the shared physics and the reset chain. ``shared``: the
+    JAX trainer, physics and reset chain of a run at another capacity:
+    this run calls that physics (restarted) and takes over the init (its
+    ring made anew), update and reset programs. ``eval_modes``: () runs no
+    evals."""
+    physics = SharedPhysics() if shared is None else shared[1]
     jenv = jax_cheetah(physics)
+    ppo = dict(PPO, buffer_capacity=capacity, eval_modes=eval_modes)
     jtr = JaxPPOTrainer(jenv, JaxDynamics(JaxConfig(**MODEL)),
-                        JaxPPOConfig(**PPO))
+                        JaxPPOConfig(**ppo))
+    if shared is not None:
+        jtr._ppo_update = shared[0]._ppo_update
     init = jax.jit(jtr.init)   # one compile, not one per eager op
 
     @jax.jit
@@ -267,6 +278,14 @@ def train_both():
         ps = jax.tree.map(lambda x: x.astype(x.dtype), ps)
         return (states.replace(t=jnp.asarray(T0, jnp.int32)), hists, buf, ps,
                 dyn.replace(norm=random_norm()))
+
+    if shared is not None:
+        # the same init but for the ring, which is its only leaf that
+        # depends on the capacity
+        def staggered_init(rng, init=shared[0].init):
+            states, hists, _, ps, dyn = init(rng)
+            return (states, hists, JaxBuffer.create(
+                E, capacity, MODEL["obs_dim"], MODEL["act_dim"]), ps, dyn)
 
     jtr.init = staggered_init
     jcollects, collect = [], jtr._collect
@@ -289,19 +308,22 @@ def train_both():
     jinit = staggered_init(r_init)
     env = HalfCheetahEnv(device="cpu", horizon=HORIZON)
     tr = PPOTrainer(env, Dynamics(DynamicsConfig(**MODEL), "cpu"),
-                    PPOConfig(**PPO))
+                    PPOConfig(**ppo))
     tr.init = lambda gen: (
-        port_states(jinit[0]), port_hists(jinit[1]), port_buffer(jinit[2]),
-        ppo_state_from_jax(np_tree(jinit[3]), "cpu"), port_dyn(jinit[4]))
+        port_states(jinit[0]), history_from_jax(np_tree(jinit[1]), "cpu"),
+        buffer_from_jax(np_tree(jinit[2]), "cpu"),
+        ppo_state_from_jax(np_tree(jinit[3]), "cpu"),
+        dynamics_state_from_jax(np_tree(jinit[4]), "cpu"))
     noise = [jax_noise(k_col) for k_col, _, _, _ in keys]
     perms = [jax_perms(jtr, k_ppo) for _, k_ppo, _, _ in keys]
     inject_fit_draws(tr, [d for _, _, k_fit, _ in keys
                           for d in jax_fit_keys(tr, k_fit)])
-    modes = PPO["eval_modes"]
+    modes = eval_modes
     evals = [port_states(jax_eval_states(jtr, k, mode))
              for *_, k_eval in keys
              for mode, k in zip(modes, jax.random.split(k_eval, len(modes)))]
-    resets = JaxResets(jenv, jinit[0].rng)
+    resets = JaxResets(jenv, jinit[0].rng,
+                       None if shared is None else shared[2])
     eval_start = []
 
     def reset(gen, n, mode=0):
@@ -337,12 +359,30 @@ def train_both():
     ps, dyn, rows = tr.train(torch.Generator())
     assert not noise and not perms and not evals
     return ((jps, jdyn, jrows, jcollects), (ps, dyn, rows, pcollects),
-            physics, resets)
+            physics, resets, jtr)
 
 
 @pytest.fixture(scope="module")
-def runs():
-    return train_both()
+def trained():
+    """Both capacities' runs, the second taking over the first's physics
+    and its JAX update and reset programs; the second runs no evals (its
+    point is the second fit, on the wrapped ring)."""
+    first = train_both(CAPACITIES[0])
+    jax_run, port_run, physics, resets, jtr = first
+    done = physics.restart()
+    return {CAPACITIES[0]: (jax_run, port_run, done, resets),
+            CAPACITIES[1]: train_both(CAPACITIES[1], (jtr, physics, resets),
+                                      eval_modes=())[:-1]}
+
+
+@pytest.fixture
+def runs(trained):
+    return trained[CAPACITIES[0]]
+
+
+@pytest.fixture
+def wrapped(trained):
+    return trained[CAPACITIES[1]]
 
 
 def close(a, b, atol, rtol=0.0, msg=""):
@@ -394,6 +434,10 @@ def test_episodes_end_inside_and_across_collects(runs):
 def test_collect_state_matches_jax(runs, i):
     """The env states, histories, ring (contents, ptr and size),
     trajectory and bootstrap value after collect ``i``."""
+    check_collect(runs, i, CAPACITIES[0])
+
+
+def check_collect(runs, i, capacity):
     (*_, jc), (*_, pc), _, _ = runs
     (states, hists, buf, traj, last), (js, jh, jb, jtraj, jlast) = pc[i], jc[i]
     assert sorted(traj) == sorted(jtraj)
@@ -417,15 +461,19 @@ def test_collect_state_matches_jax(runs, i):
         np.testing.assert_array_equal(getattr(buf, f).numpy(),
                                       np.asarray(getattr(jb, f)), f"ring.{f}")
     assert (buf.ptr, buf.size) == (int(jb.ptr), int(jb.size)) == (
-        (i + 1) * T, (i + 1) * T)
+        (i + 1) * T % capacity, min((i + 1) * T, capacity))
 
 
 def test_metrics_rows_match_the_reference(runs):
     """Both iterations' rows key for key, in the reference's order."""
+    check_rows(runs)
+
+
+def check_rows(runs, keys=ROW):
     (_, _, jrows, _), (_, _, rows, _), _, _ = runs
     assert len(rows) == len(jrows) == N_ITR
     for row, jrow in zip(rows, jrows):
-        assert list(row) == list(jrow) == ROW
+        assert list(row) == list(jrow) == keys
         for k, v in row.items():
             if k in ("itr", "collect/episodes"):
                 assert v == jrow[k], k
@@ -438,6 +486,10 @@ def test_metrics_rows_match_the_reference(runs):
 def test_final_policy_value_and_model_match(runs):
     """The policy, log_std and value MLPs with their Adam state, and the
     model's params, norm and Adam state after two iterations."""
+    check_final(runs)
+
+
+def check_final(runs):
     (jps, jdyn, _, _), (ps, dyn, _, _), _, _ = runs
     assert ps.updates == int(jps.updates) == N_ITR * 2 * 2
     assert sorted(ps.params) == sorted(jps.params) == ["log_std", "policy",
@@ -453,3 +505,21 @@ def test_final_policy_value_and_model_match(runs):
     trees_close(dyn.norm.__dict__, jdyn.norm.__dict__, OBS_ATOL, "norm")
     trees_close(dyn.opt_state.mu, jdyn.opt_state[1][0].mu, PARAM_ATOL,
                 "model mu")
+
+
+@pytest.mark.parametrize("what", ["collect1", "collect2", "rows", "final"])
+def test_wrapped_ring_matches_jax(wrapped, what):
+    """The same two iterations on a 24-column ring, without evals: the
+    second collect wraps it (ptr 8, size 24), so the second fit's norm,
+    train and valid anchors and its valid batch come from a ring whose
+    oldest column is physical column 8. Each collect's state, the rows and
+    the final state as on the 64-column ring."""
+    if what.startswith("collect"):
+        check_collect(wrapped, int(what[-1]) - 1, CAPACITIES[1])
+    elif what == "rows":
+        check_rows(wrapped, ROW[:-2])
+    else:
+        check_final(wrapped)
+    (*_, jc), (*_, pc), physics, _ = wrapped
+    assert (pc[-1][2].ptr, pc[-1][2].size) == (8, 24)
+    assert len(physics.calls) == physics.replayed == N_ITR * T
