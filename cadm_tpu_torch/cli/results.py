@@ -186,32 +186,41 @@ def compare(raw_dir: str, ref_dir: str) -> list:
 
 
 FIT_MSE, FIT_EPOCHS = "fit/valid_fwd_mse_after", "fit/epochs_run"
+FIT_LOSS = "fit/valid_loss_after"
 
 
 def fit_trace(run):
     """(first-3 mean, last-4 mean, maximum) of the valid forward MSE over a
-    run's iterations and the mean ``fit/epochs_run`` over its last 8; None
-    where the run did not record the MSE."""
+    run's iterations, the mean ``fit/epochs_run`` over its last 8, and the
+    column read. A run whose model reports no forward MSE (GrBAL: the
+    column recorded, NaN at every iteration) is read on its valid loss
+    ``FIT_LOSS`` instead; None where the run did not record the MSE."""
     col = lambda key: [h[key] for h in run["history"]  # noqa: E731
                        if key in h and h[key] == h[key]]
-    mse, epochs = col(FIT_MSE), col(FIT_EPOCHS)
-    if not mse:
+    column = FIT_MSE
+    if not col(FIT_MSE) and any(FIT_MSE in h for h in run["history"]):
+        column = FIT_LOSS
+    vals, epochs = col(column), col(FIT_EPOCHS)
+    if not vals:
         return None
-    return (sum(mse[:3]) / len(mse[:3]), sum(mse[-4:]) / len(mse[-4:]),
-            max(mse), sum(epochs[-8:]) / len(epochs[-8:]))
+    return (sum(vals[:3]) / len(vals[:3]), sum(vals[-4:]) / len(vals[-4:]),
+            max(vals), sum(epochs[-8:]) / len(epochs[-8:]), column)
 
 
 def _trace_text(trace) -> str:
-    return "{:.4f} → {:.4f}, max {:.3f}, epochs {:.2f}".format(*trace)
+    text = "{:.4f} → {:.4f}, max {:.3f}, epochs {:.2f}".format(*trace[:4])
+    return text if trace[4] == FIT_MSE else f"{trace[4]} {text}"
 
 
 def fit_trace_table(raw_dir: str = RAW, ref_dir: str = None) -> list:
     """A line per cell of ``raw_dir``: its ``fit_trace`` (and, with
     ``ref_dir``, each seed's of the same family and model there), or the
-    cell named as skipped where it has no forward-MSE column."""
+    cell named as skipped where it has no forward-MSE column. A trace read
+    on the valid loss (GrBAL) names that column first."""
     cells, _ = load_cells(raw_dir)
     refs = load_cells(ref_dir)[0] if ref_dir else {}
-    lines = ["| cell | valid fwd MSE first-3 → last-4, max, epochs (last 8) |"
+    lines = ["| cell | valid fwd MSE (or the column named) first-3 → last-4, "
+             "max, epochs (last 8) |"
              + (" reference seeds |" if ref_dir else ""),
              "|---|---|" + ("---|" if ref_dir else "")]
     for key in sorted(cells):
@@ -327,6 +336,17 @@ def render(raw_dir: str = RAW) -> list:
         "falls as the records' do and ends at their last-4 means (0.0585 "
         "against 0.0609 / 0.0620); out ×2 above RESULTS.md's row on train "
         "and collect, in on moderate and extreme.",
+        "- half_cheetah Vanilla, Stacked, ReBAL (RNN), GrBAL and PPO: seed 0 "
+        "each (same card). Each fit trace (`--fit-trace --against "
+        "results/raw`; GrBAL's on its valid loss, as its model reports no "
+        "forward MSE) lies with the records'. Out ×2 of RESULTS.md's rows "
+        "at n = 1: Vanilla below on the three ranges, ReBAL above on all "
+        "four columns, GrBAL above on moderate and below on collect (both "
+        "against half-ranges of about 2 %), Stacked above on train and "
+        "moderate, PPO above on train "
+        "and moderate, where, as for PPO + CaDM, the record may not be the "
+        "cell's reference at today's config. The second seeds are queued "
+        "(ROADMAP C7).",
         "",
     ]
 

@@ -96,10 +96,12 @@ Phases, one or more lines each, any failure raising (exit code != 0):
 12. the result-matrix runner (``cadm_tpu_torch.cli.matrix.main``) on
    ``half_cheetah cadm s0``, ``half_cheetah pets_cadm s0`` (PE-TS + CaDM:
    5 probabilistic members, TS1 planning), ``hopper cadm s0`` and
-   ``slim_humanoid cadm s0`` (the last two under the MBBL fixed-horizon
-   protocol) at full width (256 envs, CEM 256 × 30 × 5 warm-started, heads
-   4×200, the family's ring, eval 32 envs), cut in depth only through a
-   copy of its table (TRAIN_DEPTH), its output in a temporary directory:
+   ``slim_humanoid cadm s0`` (those two under the MBBL fixed-horizon
+   protocol) and ``half_cheetah grbal s0`` (its forward-MSE column NaN at
+   every iteration, as in its record) at full width (256 envs, CEM 256 ×
+   30 × 5 warm-started, heads 4×200, the family's ring, eval 32 envs),
+   cut in depth only through a copy of its table (TRAIN_DEPTH), its
+   output in a temporary directory:
    each cell JSON has the keys of its cell's reference record
    (``results/raw/<family>__<model>__s1.json``, read as data) plus
    ``code_version``, ``loss_variant`` and ``card``, its history columns and
@@ -1740,9 +1742,13 @@ def run_mesh():
 # reference record of its cell (s0 predates the loss-variant tag and the
 # history columns its runner writes now); hopper and slim_humanoid run the
 # MBBL fixed-horizon protocol (no early termination); pets_cadm is the
-# paper's PE-TS + CaDM (5 probabilistic members, TS1 planning)
+# paper's PE-TS + CaDM (5 probabilistic members, TS1 planning); grbal plans
+# through per-env adapted weights and reports no forward MSE (its column
+# NaN at every iteration, as in its record)
 MATRIX_CELLS = (("half_cheetah", "cadm"), ("half_cheetah", "pets_cadm"),
-                ("hopper", "cadm"), ("slim_humanoid", "cadm"))
+                ("hopper", "cadm"), ("slim_humanoid", "cadm"),
+                ("half_cheetah", "grbal"))
+NAN_COLUMNS = {"grbal": {"fit/valid_fwd_mse_after"}}
 MATRIX_REFERENCES = {
     (f, m): os.path.join(ROOT, "results", "raw", f"{f}__{m}__s1.json")
     for f, m in MATRIX_CELLS}
@@ -1793,7 +1799,15 @@ def run_matrix(pgs, fk_kernel, family="half_cheetah", model="cadm"):
 
     cols = set().union(*cell["history"])
     ref_cols = set().union(*ref["history"])
-    values = [v for row in cell["history"] for v in row.values()]
+    nan_cols = NAN_COLUMNS.get(model, set())
+    values = [v for row in cell["history"] for k, v in row.items()
+              if k not in nan_cols]
+    # a column the model does not report is NaN at every iteration, in the
+    # cell as in its record
+    if not all(row[k] != row[k] for rows in (cell["history"], ref["history"])
+               for row in rows for k in nan_cols):
+        raise AssertionError(f"matrix {name}: {sorted(nan_cols)} not NaN at "
+                             "every iteration of the cell and its record")
     print(f"matrix {name}: keys {sorted(cell)}; {len(cell['history'])} rows, "
           f"{len(cols)} history columns; code_version {cell['code_version']}, "
           f"loss_variant {cell['loss_variant']}, card {cell['card']}; "

@@ -13,8 +13,13 @@ next call's stamp.
 
     python scripts/matrix_cell_progress.py --families half_cheetah \\
         --models cadm --seeds 0
+
+``--summarize LOG...`` reads such logs instead and prints, per log, each
+call name's count, seconds and share of the stamped time, and the range of
+its calls' seconds (the first collect, the random one, apart).
 """
 import os
+import re
 import sys
 import time
 
@@ -44,7 +49,30 @@ def stamp(cls, name: str) -> None:
     setattr(cls, name, inner)
 
 
+def summarize(path: str) -> None:
+    calls = []
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"(\w+) ended at [\d.]+ s \(([\d.]+) s\)", line)
+            if m:
+                calls.append((m.group(1), float(m.group(2))))
+    total = sum(s for _, s in calls)
+    if calls and calls[0][0] == "_collect":
+        calls[0] = ("_collect (first)", calls[0][1])
+    parts = []
+    for name in dict.fromkeys(n for n, _ in calls):
+        secs = [s for n, s in calls if n == name]
+        share = 100 * sum(secs) / total
+        parts.append(f"{name} {len(secs)} × {min(secs):.1f}–{max(secs):.1f}"
+                     f" s = {sum(secs):.1f} s ({share:.1f} %)")
+    print(f"{path}: {total:.1f} s stamped; " + "; ".join(parts))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--summarize"]:
+        for log in sys.argv[2:]:
+            summarize(log)
+        sys.exit(0)
     # before the trainer is built: it binds its fit method at construction
     for n in ("_collect", "_fit_epochs_impl", "_fit_impl", "evaluate"):
         stamp(MBTrainer, n)

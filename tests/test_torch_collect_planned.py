@@ -8,27 +8,14 @@ window and of the warm-start plan on done shapes the later actions on both
 sides (set-up in torch_collect_common.py).
 """
 import jax
-import numpy as np
 import torch
 
 from tests.torch_collect_common import (
-    E,
-    ITERS,
     STEPS,
-    C,
-    H,
     assert_collect_matches,
+    jax_noise,
     setup,
 )
-
-
-def jax_noise(key):
-    """The ε of one planner call: (ITERS, E, C, H, 6)."""
-    eps = [[jax.random.truncated_normal(jax.random.split(k)[0], -2.0, 2.0,
-                                        (C, H, 6))
-            for k in jax.random.split(k_env, ITERS)]
-           for k_env in jax.random.split(key, E)]
-    return torch.tensor(np.swapaxes(np.asarray(eps), 0, 1))
 
 
 def test_planned_collect_matches_jax():

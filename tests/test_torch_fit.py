@@ -1,14 +1,16 @@
 """The port's model fit against the JAX package: loss and gradient, the
 optimizer step (optax ``clip_by_global_norm(10)`` → ``adam(1e-3)``), the norm
 refresh, the epoch arithmetic, the early-stop rule and a whole epoch fit (one
-deterministic member, and the result matrix's five probabilistic PE-TS + CaDM
-members with the shared and the detached log-variance trunk).
+deterministic member, the result matrix's five probabilistic PE-TS + CaDM
+members with the shared and the detached log-variance trunk, and the history
+baselines Stacked, ReBAL and GrBAL).
 
 Weights, optimizer state and inputs come from the JAX side (converted with
 ``utils.convert``); where the JAX trainer draws segment indices from its keys,
 the test rebuilds those draws and hands the port the same indices.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,9 @@ from cadm_tpu.models.dynamics import Dynamics as JaxDynamics
 from cadm_tpu.models.dynamics import DynamicsConfig as JaxConfig
 from cadm_tpu.models.dynamics import NormStats as JaxNorm
 from cadm_tpu.models.dynamics import SegmentBatch as JaxBatch
+from cadm_tpu.models.grbal import GrBAL as JaxGrBAL
+from cadm_tpu.models.grbal import GrBALConfig as JaxGrBALConfig
+from cadm_tpu.planners.grbal_mpc import GrBALPlanner as JaxGrBALPlanner
 from cadm_tpu.planners.mpc import MPCPlanner as JaxPlanner
 from cadm_tpu.planners.mpc import PlannerConfig as JaxPlannerConfig
 from cadm_tpu.train.buffer import ReplayBuffer as JaxBuffer
@@ -35,6 +40,8 @@ from cadm_tpu_torch.models.dynamics import (
     DynamicsState,
     SegmentBatch,
 )
+from cadm_tpu_torch.models.grbal import GrBAL, GrBALConfig, GrBALState
+from cadm_tpu_torch.planners.grbal_mpc import GrBALPlanner
 from cadm_tpu_torch.planners.mpc import MPCPlanner, PlannerConfig
 from cadm_tpu_torch.train.buffer import ReplayBuffer
 from cadm_tpu_torch.train.mb_trainer import (
@@ -93,6 +100,8 @@ def port_state(jstate, model):
                                    jax.tree.map(np.asarray, jstate.norm), "cpu")
     opt = adam_state_from_jax(jax.tree.map(np.asarray, jstate.opt_state[1][0]),
                               "cpu")
+    if isinstance(model, GrBAL):
+        return GrBALState(params, norm, opt, int(jstate.updates))
     return DynamicsState(params, norm, opt, int(jstate.updates))
 
 
@@ -157,20 +166,29 @@ def test_twenty_updates_match_optax_from_a_mid_training_state():
 
 
 # ------------------------------------------------------------- trainers --
-def trainers(n_envs=4, capacity=40, model_cfg=None, **fit):
-    """The JAX and port trainers at toy width on HalfCheetah."""
+def trainers(n_envs=4, capacity=40, model_cfg=None, grbal=False, **fit):
+    """The JAX and port trainers at toy width on HalfCheetah (``grbal``: of
+    a ``GrBAL`` model config, with each package's ``GrBALPlanner``)."""
     model_cfg = MODEL if model_cfg is None else model_cfg
     tcfg = dict(n_envs=n_envs, batch_size=B, buffer_capacity=capacity,
                 fit_protocol="epochs", **fit)
     plan = dict(kind="cem", horizon=3, n_candidates=8, cem_iters=1,
                 cem_elites=2)
-    jenv, jm = JaxCheetah(), JaxDynamics(JaxConfig(**model_cfg))
-    jplanner = JaxPlanner(JaxPlannerConfig(**plan), jm, jenv.reward, ACT)
+    jenv = JaxCheetah()
+    jm = (JaxGrBAL(JaxGrBALConfig(**model_cfg)) if grbal
+          else JaxDynamics(JaxConfig(**model_cfg)))
+    jplanner = (JaxGrBALPlanner if grbal else JaxPlanner)(
+        JaxPlannerConfig(**plan), jm, jenv.reward, ACT)
     env = HalfCheetahEnv(device="cpu")
-    model = Dynamics(DynamicsConfig(**model_cfg), "cpu")
-    planner = MPCPlanner(PlannerConfig(**plan), model, env.reward, ACT)
+    model = (GrBAL(GrBALConfig(**model_cfg), "cpu") if grbal
+             else Dynamics(DynamicsConfig(**model_cfg), "cpu"))
+    planner = (GrBALPlanner if grbal else MPCPlanner)(
+        PlannerConfig(**plan), model, env.reward, ACT)
     return (JaxTrainer(jenv, jm, jplanner, JaxTrainerConfig(**tcfg)),
             MBTrainer(env, model, planner, TrainerConfig(**tcfg)))
+
+
+_jax_append = jax.jit(JaxBuffer.append)  # one compile, not one per op
 
 
 def filled_buffers(n_envs, capacity, n_appends, seed=0):
@@ -187,7 +205,8 @@ def filled_buffers(n_envs, capacity, n_appends, seed=0):
         bad = rng.rand(n_envs) < 0.03
         es = ep.copy()
         ep = np.where(done, 0, ep + 1).astype(np.int32)
-        jbuf = jbuf.append(*map(jnp.asarray, (obs, act, nxt, done, es, bad)))
+        jbuf = _jax_append(jbuf, *map(jnp.asarray,
+                                      (obs, act, nxt, done, es, bad)))
         buf.append(*map(torch.from_numpy, (obs, act, nxt.astype(np.float32),
                                            done, es, bad)))
     return jbuf, buf
@@ -261,21 +280,25 @@ def test_early_stop_sequence_matches_jax(script):
     assert state.updates == stopped_at[script] * n_mb
 
 
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _segment_indices(key, high, shape, n_envs):
+    """(env_idx, u) of one segment draw from ``key``."""
+    r_seg, _ = jax.random.split(key)          # MBTrainer._sample
+    r_env, r_t = jax.random.split(r_seg)      # ReplayBuffer.sample_segments
+    return (jax.random.randint(r_env, shape, 0, n_envs),
+            jax.random.randint(r_t, shape, 0, jnp.maximum(high, 1)))
+
+
 def jax_fit_draws(jtr, jbuf, rng, n_mb, mb_cap):
     """Every (split, env_idx, u) the JAX ``_fit_epochs_impl`` draws from
     ``rng``, in order (all ``max_epochs`` epochs)."""
     cfg, shape = jtr.cfg, (jtr.model.cfg.n_members, B)
 
     def draw(key, split):
-        r_seg, _ = jax.random.split(key)          # MBTrainer._sample
-        r_env, r_t = jax.random.split(r_seg)      # ReplayBuffer.sample_segments
         high = {"train": jbuf.n_train_anchors(),
                 "valid": jbuf.n_valid_anchors()}[split]
-        return (split,
-                torch.tensor(np.asarray(jax.random.randint(
-                    r_env, shape, 0, jbuf.n_envs))),
-                torch.tensor(np.asarray(jax.random.randint(
-                    r_t, shape, 0, jnp.maximum(high, 1)))))
+        return (split, *(torch.tensor(np.asarray(x)) for x in
+                         _segment_indices(key, high, shape, jbuf.n_envs)))
 
     r_init, r_epochs = jax.random.split(rng)
     out = [draw(k, "valid")
@@ -292,18 +315,27 @@ def jax_fit_draws(jtr, jbuf, rng, n_mb, mb_cap):
 # pets_cadm_dv): five probabilistic members under the decoupled loss, each
 # drawing its own bootstrap minibatch
 PETS = dict(MODEL, n_members=5, probabilistic=True, mean_anchor=1.0)
+# the history baselines (cli/matrix.py's stacked, rebal and grbal): the flat
+# window fed to the heads, the GRU encoder over the window, and GrBAL's
+# meta-loss through one inner step on the window (its net of the same
+# width); ``grbal`` marks a GrBAL config
 EPOCH_FITS = {
     "deterministic": (MODEL, {}),
     "pets_cadm": (PETS, {}),
     "pets_cadm_detached": (dict(PETS, detach_logvar_trunk=True), {}),
     "pets_cadm_dv": (dict(PETS, detach_logvar_trunk=True),
                      dict(early_stop_metric="fwd_mse")),
+    "stacked": (dict(MODEL, context="stacked"), {}),
+    "rnn": (dict(MODEL, context="rnn", z_dim=4, rnn_hidden=8), {}),
+    "grbal": (dict(obs_dim=OBS, act_dim=ACT, hidden=(32, 32), history_k=K,
+                   future_m=M), dict(grbal=True)),
 }
 
 
 @pytest.mark.parametrize("case", list(EPOCH_FITS))
 def test_epoch_fit_matches_jax_with_the_same_batches(case):
     model_cfg, fit = EPOCH_FITS[case]
+    grbal = fit.get("grbal", False)
     jtr, tr = trainers(model_cfg=model_cfg, max_epochs=4,
                        early_stop_patience=2, **fit)
     jbuf, buf = filled_buffers(4, 40, 30, seed=4)
@@ -332,7 +364,15 @@ def test_epoch_fit_matches_jax_with_the_same_batches(case):
     for key, val in met.items():
         np.testing.assert_allclose(float(val), float(jmet[key]),
                                    atol=FIT_ATOL, rtol=FIT_RTOL, err_msg=key)
+    # GrBAL's loss reports no forward MSE: NaN on both sides, and its early
+    # stop ran on the valid loss
+    assert np.isnan(float(met["fit/valid_fwd_mse_after"])) == grbal
+    assert np.isnan(float(jmet["fit/valid_fwd_mse_after"])) == grbal
     assert_trees_close(state.params, jstate_out.params, FIT_ATOL)
+    jadam = jstate_out.opt_state[1][0]
+    assert int(state.opt_state.count) == int(jadam.count) == epochs * n_mb
+    assert_trees_close(state.opt_state.mu, jadam.mu, FIT_ATOL)
+    assert_trees_close(state.opt_state.nu, jadam.nu, FIT_ATOL)
     assert state.updates == int(jstate_out.updates) == epochs * n_mb
     # the fitted models' loss terms on one held-out batch, the members'
     # log-variance bound penalty among them

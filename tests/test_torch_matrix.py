@@ -353,6 +353,29 @@ def test_the_fit_trace_names_a_record_without_the_column(tmp_path):
     assert not out.exists()
 
 
+def test_the_fit_trace_reads_grbal_on_its_valid_loss(tmp_path):
+    """GrBAL's records carry the forward-MSE column as NaN at every
+    iteration (its loss reports none): the trace reads the valid loss, and
+    says so, for the cell and its reference seeds alike."""
+    name = "half_cheetah__grbal__s1"
+    with open(os.path.join(JAX_RAW, name + ".json")) as f:
+        record = json.load(f)
+    (tmp_path / (name + ".json")).write_text(json.dumps(record))
+    assert all(h[results.FIT_MSE] != h[results.FIT_MSE]
+               for h in record["history"])
+    trace = results.fit_trace(record)
+    assert [round(v, 4) for v in trace[:2]] == [0.2685, 0.1853]
+    assert round(trace[2], 3) == 0.301 and trace[3] == 4.125
+    assert trace[4] == results.FIT_LOSS
+    rows = results.fit_trace_table(str(tmp_path), JAX_RAW)
+    assert rows[2] == (
+        "| half_cheetah__grbal__s1 | fit/valid_loss_after 0.2685 → 0.1853, "
+        "max 0.301, epochs 4.12 | s0 fit/valid_loss_after 0.2785 → 0.1916, "
+        "max 0.302, epochs 5.00; s1 fit/valid_loss_after 0.2685 → 0.1853, "
+        "max 0.301, epochs 4.12 |")
+    assert len(rows) == 3
+
+
 # ------------------------------------------------------ (v) the loss tag --
 def test_the_loss_variant_is_the_references():
     assert LOSS_VARIANT == JAX_LOSS_VARIANT

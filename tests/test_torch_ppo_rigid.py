@@ -35,8 +35,6 @@ bootstrap value are held to the JAX package's; after the two iterations
 both metrics rows key for key, and the final policy, log_std, value and
 model params with their Adam states.
 """
-import copy
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,7 +42,6 @@ import pytest
 import torch
 
 from cadm_tpu.envs.half_cheetah import HalfCheetahEnv as JaxCheetah
-from cadm_tpu.envs.rigid_base import RigidPhys as JaxPhys
 from cadm_tpu.models.dynamics import Dynamics as JaxDynamics
 from cadm_tpu.models.dynamics import DynamicsConfig as JaxConfig
 from cadm_tpu.models.dynamics import NormStats as JaxNorm
@@ -53,7 +50,6 @@ from cadm_tpu.train.ppo import PPOConfig as JaxPPOConfig
 from cadm_tpu.train.ppo import PPOTrainer as JaxPPOTrainer
 from cadm_tpu_torch.core.types import tree_leaves
 from cadm_tpu_torch.envs.half_cheetah import HalfCheetahEnv
-from cadm_tpu_torch.envs.rigid_base import MassDampingParams, RigidPhys
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig
 from cadm_tpu_torch.train.buffer import ReplayBuffer
 from cadm_tpu_torch.train.ppo import PPOConfig, PPOTrainer
@@ -64,6 +60,7 @@ from cadm_tpu_torch.utils.convert import (
     history_from_jax,
     ppo_state_from_jax,
 )
+from tests.torch_collect_common import SharedPhysics
 
 # tests/test_torch_ppo.py's tolerances: params after Adam steps 1e-5,
 # losses 1e-5 relative; everything derived from obs (the trajectory's
@@ -89,62 +86,6 @@ def t(x):
 
 def np_tree(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-class SharedPhysics:
-    """The port's ``step_phys`` for the JAX env, each call's inputs and
-    result kept in order for the port's env to be held to and replay."""
-
-    def __init__(self):
-        self.port = HalfCheetahEnv(device="cpu")
-        self.calls = []
-        self.replayed = 0
-        self.worst = {"qpos": 0.0, "qvel": 0.0, "act": 0.0}
-        self.steps = {}  # the port's step of each input seen, by its bytes
-
-    def restart(self) -> "SharedPhysics":
-        """A copy holding the record so far; this one starts a new one
-        (the JAX programs that call it, and the steps taken, are kept)."""
-        done = copy.copy(self)
-        self.calls, self.replayed = [], 0
-        self.worst = dict.fromkeys(self.worst, 0.0)
-        return done
-
-    def jax_step_phys(self, params, phys, action):
-        """The JAX env's ``step_phys``, under its vmap: one host call of
-        the batch."""
-        def host(ms, ds, qpos, qvel, act):
-            inputs = [np.array(x) for x in (ms, ds, qpos, qvel, act)]
-            key = b"".join(x.tobytes() for x in inputs)
-            if key not in self.steps:   # a restarted run repeats some
-                out = self.port.step_phys(
-                    MassDampingParams(t(ms), t(ds)),
-                    RigidPhys(t(qpos), t(qvel)), t(act))
-                self.steps[key] = (out.qpos.numpy(), out.qvel.numpy())
-            result = self.steps[key]
-            self.calls.append((inputs, result))
-            return result
-
-        shapes = (jax.ShapeDtypeStruct(phys.qpos.shape, jnp.float32),
-                  jax.ShapeDtypeStruct(phys.qvel.shape, jnp.float32))
-        qpos, qvel = jax.pure_callback(
-            host, shapes, params.mass_scale, params.damping_scale, phys.qpos,
-            phys.qvel, action, vmap_method="broadcast_all")
-        return JaxPhys(qpos=qpos, qvel=qvel)
-
-    def port_step_phys(self, params, phys, action):
-        """The port env's ``step_phys``: the next recorded call, its inputs
-        held to the port's."""
-        (ms, ds, qpos, qvel, act), (q, v) = self.calls[self.replayed]
-        self.replayed += 1
-        np.testing.assert_array_equal(params.mass_scale.numpy(), ms)
-        np.testing.assert_array_equal(params.damping_scale.numpy(), ds)
-        for name, ours, ref in (("qpos", phys.qpos, qpos),
-                                ("qvel", phys.qvel, qvel),
-                                ("act", action, act)):
-            self.worst[name] = max(self.worst[name],
-                                   float(np.abs(ours.numpy() - ref).max()))
-        return RigidPhys(t(q), t(v))
 
 
 def jax_cheetah(physics):

@@ -1,4 +1,5 @@
-"""Shared set-up of the collect parity tests (test_torch_collect*.py).
+"""Shared set-up of the collect parity tests (test_torch_collect*.py,
+test_torch_baselines_jax.py).
 
 Both packages collect on a HalfCheetah whose reset is deterministic (fixed
 hidden scales and start state), so that episodes ending inside the collect
@@ -6,7 +7,14 @@ restart identically on both sides and everything after the history / plan
 wipe can be compared too. Episodes are 3 steps long and the envs start at
 different ``t``, so dones fire at different steps; the ring (capacity 5)
 wraps during the 6-step collect.
+
+``SharedPhysics`` steps both packages' envs through the port's float32
+physics (the JAX env's through a host callback), each call's inputs held
+to the JAX env's: for tests of what lies above the physics, which is held
+by tests/test_torch_physics.py and tests/test_torch_env.py.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +28,9 @@ from cadm_tpu.envs.rigid_base import RigidPhys as JaxPhys
 from cadm_tpu.models.dynamics import Dynamics as JaxDynamics
 from cadm_tpu.models.dynamics import DynamicsConfig as JaxConfig
 from cadm_tpu.models.dynamics import NormStats as JaxNorm
+from cadm_tpu.models.grbal import GrBAL as JaxGrBAL
+from cadm_tpu.models.grbal import GrBALConfig as JaxGrBALConfig
+from cadm_tpu.planners.grbal_mpc import GrBALPlanner as JaxGrBALPlanner
 from cadm_tpu.planners.mpc import MPCPlanner as JaxPlanner
 from cadm_tpu.planners.mpc import PlannerConfig as JaxPlannerConfig
 from cadm_tpu.train.buffer import ReplayBuffer as JaxBuffer
@@ -29,6 +40,8 @@ from cadm_tpu_torch.core.types import EnvState, batched_history
 from cadm_tpu_torch.envs.half_cheetah import HalfCheetahEnv
 from cadm_tpu_torch.envs.rigid_base import MassDampingParams, RigidPhys
 from cadm_tpu_torch.models.dynamics import Dynamics, DynamicsConfig, DynamicsState
+from cadm_tpu_torch.models.grbal import GrBAL, GrBALConfig
+from cadm_tpu_torch.planners.grbal_mpc import GrBALPlanner
 from cadm_tpu_torch.planners.mpc import MPCPlanner, PlannerConfig
 from cadm_tpu_torch.train.mb_trainer import MBTrainer, TrainerConfig
 from cadm_tpu_torch.utils.convert import params_from_jax
@@ -70,19 +83,107 @@ class DetCheetah(HalfCheetahEnv):
                          torch.from_numpy(RESET_QVEL).repeat(n, 1))
 
 
-def setup():
-    """(JAX trainer, JAX collect args, port trainer, port collect args)."""
+def host_tensor(x):
+    return torch.from_numpy(np.array(x))
+
+
+class SharedPhysics:
+    """The port's ``step_phys`` for the JAX env, each call's inputs and
+    result kept in order for the port's env to be held to and replay."""
+
+    def __init__(self):
+        self.port = HalfCheetahEnv(device="cpu")
+        self.calls = []
+        self.replayed = 0
+        self.worst = {"qpos": 0.0, "qvel": 0.0, "act": 0.0}
+        self.steps = {}  # the port's step of each input seen, by its bytes
+
+    def restart(self) -> "SharedPhysics":
+        """A copy holding the record so far; this one starts a new one
+        (the JAX programs that call it, and the steps taken, are kept)."""
+        done = copy.copy(self)
+        self.calls, self.replayed = [], 0
+        self.worst = dict.fromkeys(self.worst, 0.0)
+        return done
+
+    def jax_step_phys(self, params, phys, action):
+        """The JAX env's ``step_phys``, under its vmap: one host call of
+        the batch."""
+        def host(ms, ds, qpos, qvel, act):
+            inputs = [np.array(x) for x in (ms, ds, qpos, qvel, act)]
+            key = b"".join(x.tobytes() for x in inputs)
+            if key not in self.steps:   # a restarted run repeats some
+                out = self.port.step_phys(
+                    MassDampingParams(host_tensor(ms), host_tensor(ds)),
+                    RigidPhys(host_tensor(qpos), host_tensor(qvel)),
+                    host_tensor(act))
+                self.steps[key] = (out.qpos.numpy(), out.qvel.numpy())
+            result = self.steps[key]
+            self.calls.append((inputs, result))
+            return result
+
+        shapes = (jax.ShapeDtypeStruct(phys.qpos.shape, jnp.float32),
+                  jax.ShapeDtypeStruct(phys.qvel.shape, jnp.float32))
+        qpos, qvel = jax.pure_callback(
+            host, shapes, params.mass_scale, params.damping_scale, phys.qpos,
+            phys.qvel, action, vmap_method="broadcast_all")
+        return JaxPhys(qpos=qpos, qvel=qvel)
+
+    def port_step_phys(self, params, phys, action):
+        """The port env's ``step_phys``: the next recorded call, its inputs
+        held to the port's."""
+        (ms, ds, qpos, qvel, act), (q, v) = self.calls[self.replayed]
+        self.replayed += 1
+        np.testing.assert_array_equal(params.mass_scale.numpy(), ms)
+        np.testing.assert_array_equal(params.damping_scale.numpy(), ds)
+        for name, ours, ref in (("qpos", phys.qpos, qpos),
+                                ("qvel", phys.qvel, qvel),
+                                ("act", action, act)):
+            self.worst[name] = max(self.worst[name],
+                                   float(np.abs(ours.numpy() - ref).max()))
+        return RigidPhys(host_tensor(q), host_tensor(v))
+
+
+def jax_noise(key):
+    """The ε of one planner call: (ITERS, E, C, H, 6), from the collect's
+    key of that step (``mb_trainer.py:232`` → ``mpc.py:plan`` →
+    ``_plan_single``)."""
+    eps = [[jax.random.truncated_normal(jax.random.split(k)[0], -2.0, 2.0,
+                                        (C, H, 6))
+            for k in jax.random.split(k_env, ITERS)]
+           for k_env in jax.random.split(key, E)]
+    return torch.tensor(np.swapaxes(np.asarray(eps), 0, 1))
+
+
+def setup(model=MODEL, grbal=False, physics=None):
+    """(JAX trainer, JAX collect args, port trainer, port collect args) of
+    the model config ``model``: a ``Dynamics`` one, or with ``grbal`` a
+    ``GrBAL`` one, planned by each package's ``GrBALPlanner``.
+    ``physics``: a ``SharedPhysics`` both envs step through, else each
+    package steps its own."""
     tcfg = dict(n_envs=E, steps_per_itr=STEPS, buffer_capacity=CAPACITY)
-    jenv, jm = DetJaxCheetah(), JaxDynamics(JaxConfig(**MODEL))
-    jplanner = JaxPlanner(JaxPlannerConfig(**PLAN), jm, jenv.reward, 6,
-                          bad_transition_fn=jenv.bad_transition,
-                          obs_limit=jenv.bad_obs_limit)
+    if physics is None:
+        jenv = DetJaxCheetah()
+    else:
+        class SharedJaxCheetah(DetJaxCheetah):
+            def step_phys(self, params, phys, action):
+                return physics.jax_step_phys(params, phys, action)
+
+        jenv = SharedJaxCheetah()
+    jm = (JaxGrBAL(JaxGrBALConfig(**model)) if grbal
+          else JaxDynamics(JaxConfig(**model)))
+    jplanner = (JaxGrBALPlanner if grbal else JaxPlanner)(
+        JaxPlannerConfig(**PLAN), jm, jenv.reward, 6,
+        bad_transition_fn=jenv.bad_transition, obs_limit=jenv.bad_obs_limit)
     jtr = JaxTrainer(jenv, jm, jplanner, JaxTrainerConfig(**tcfg))
-    env, model = DetCheetah(device="cpu"), Dynamics(DynamicsConfig(**MODEL),
-                                                    "cpu")
-    planner = MPCPlanner(PlannerConfig(**PLAN), model, env.reward, 6,
-                         bad_transition_fn=env.bad_transition,
-                         obs_limit=env.bad_obs_limit)
+    env = DetCheetah(device="cpu")
+    if physics is not None:
+        env.step_phys = physics.port_step_phys
+    model = (GrBAL(GrBALConfig(**model), "cpu") if grbal
+             else Dynamics(DynamicsConfig(**model), "cpu"))
+    planner = (GrBALPlanner if grbal else MPCPlanner)(
+        PlannerConfig(**PLAN), model, env.reward, 6,
+        bad_transition_fn=env.bad_transition, obs_limit=env.bad_obs_limit)
     tr = MBTrainer(env, model, planner, TrainerConfig(**tcfg))
 
     rng = np.random.RandomState(1)
@@ -98,7 +199,7 @@ def setup():
         phys=jphys, obs=jax.vmap(jenv.observe)(jpar, jphys), params=jpar,
         t=jnp.asarray(t), rng=jax.random.split(jax.random.key(2), E),
         done=jnp.zeros(E, bool))
-    jdyn = jm.init_state(jax.random.key(3))
+    jdyn = jax.jit(jm.init_state)(jax.random.key(3))  # one compile
     jdyn = jdyn.replace(norm=JaxNorm(*(
         jnp.asarray(rng.uniform(lo, hi, n).astype(np.float32))
         for lo, hi, n in ((-1, 1, 17), (0.5, 2, 17), (-1, 1, 6), (0.5, 2, 6),
@@ -132,7 +233,7 @@ def assert_collect_matches(jout, out):
         exact(getattr(buf, name), getattr(jbuf, name), f"buffer.{name}")
     # every env ended at least one episode: its history was wiped
     assert buf.done.any(dim=1).all()
-    for name in ("obs", "dobs", "act"):
+    for name in ("obs", "dobs", "act", "rnn_h"):  # rnn_h: ReBAL's GRU state
         close(getattr(hists, name), getattr(jh, name), f"history.{name}")
     exact(hists.valid, jh.valid, "history.valid")
     close(states.obs, jstates.obs, "env obs")
