@@ -16,7 +16,9 @@ Usage:
 
 ``--fit-trace`` prints, instead of writing the file, each cell's fit
 trajectory (``fit_trace``): a learning signature that does not rest on the
-last two evals.
+last two evals. ``--against`` also prints each run's evals as the mean of
+its last ``--last-k`` (default 4) beside the last two (``last_k_table``),
+an added view: the table and the comparison keep the last two.
 """
 from __future__ import annotations
 
@@ -182,6 +184,38 @@ def compare(raw_dir: str, ref_dir: str) -> list:
             lines.append(f"| {fam} | {MODEL_LABEL[model]} | "
                          + " | ".join(parts)
                          + f" | {len(runs)} / {len(ref)} |")
+    return lines
+
+
+def _evals_text(run, tail: int) -> str:
+    """train / moderate / extreme: each the mean of the run's last
+    ``tail`` evals, unrounded to 0.1."""
+    vals = [_run_value(run, key, tail) for key in METRICS[:3]]
+    return " / ".join("—" if v is None else f"{v:.1f}" for v in vals)
+
+
+def last_k_table(raw_dir: str = RAW, ref_dir: str = None,
+                 k: int = 4) -> list:
+    """A line per run of ``raw_dir``: its eval returns per mode as the mean
+    of the last two evals (the protocol's statistic) and of the last ``k``
+    (with ``ref_dir``, each seed's last ``k`` of the same family and model
+    there). One eval swings ×2–×3 between iterations, so the last ``k``
+    is an added view; the table and ``compare`` keep the last two."""
+    cells, _ = load_cells(raw_dir)
+    refs = load_cells(ref_dir)[0] if ref_dir else {}
+    lines = [f"| cell | last 2 evals | last {k} evals |"
+             + (f" reference seeds, last {k} |" if ref_dir else ""),
+             "|---|---|---|" + ("---|" if ref_dir else "")]
+    for key in sorted(cells):
+        for run in sorted(cells[key], key=lambda r: r["seed"]):
+            row = (f"| {key[0]}__{key[1]}__s{run['seed']} | "
+                   f"{_evals_text(run, 2)} | {_evals_text(run, k)} |")
+            if ref_dir:
+                row += " " + ("; ".join(
+                    f"s{r['seed']} {_evals_text(r, k)}" for r in
+                    sorted(refs.get(key, []), key=lambda r: r["seed"]))
+                    or "—") + " |"
+            lines.append(row)
     return lines
 
 
@@ -361,6 +395,9 @@ def main(argv=None) -> None:
     p.add_argument("--against", default=None, metavar="REF_RAW",
                    help="also print each row beside REF_RAW's (e.g. "
                         "results/raw, the JAX package's cells)")
+    p.add_argument("--last-k", type=int, default=4, metavar="K",
+                   help="with --against, also print each run's evals as "
+                        "the mean of its last K beside its last two")
     p.add_argument("--fit-trace", action="store_true",
                    help="print each cell's fit trajectory (beside "
                         "--against's seeds) and write nothing")
@@ -376,6 +413,7 @@ def main(argv=None) -> None:
         print("\n".join(lines))
     if args.against:
         print("\n".join(compare(args.raw, args.against)))
+        print("\n".join(last_k_table(args.raw, args.against, args.last_k)))
 
 
 if __name__ == "__main__":

@@ -442,7 +442,8 @@ class MBTrainer:
     # ------------------------------------------------------------- eval --
     @torch.no_grad()
     def evaluate(self, dyn_state: DynamicsState, mode: int,
-                 gen: torch.Generator) -> Tensor:
+                 gen: torch.Generator,
+                 noise: Optional[Tensor] = None) -> Tensor:
         """One planner-driven episode per eval env → returns (eval_envs,).
 
         Runs ``env.horizon`` control steps; each env's return stops
@@ -450,14 +451,16 @@ class MBTrainer:
         counted), as in the reference. ``dyn_state`` has every member
         (``planning_state``). On a mesh the eval envs split over dp where
         they divide it (else every rank runs all of them) and every rank
-        gets all the returns.
+        gets all the returns. ``noise`` replaces the planner's ε per step
+        (horizon, cem_iters, E, C, H, act), as in ``_collect``; op by op
+        only.
         """
         env = self.env
         g, n = env_rows(self.mesh, gen, self.cfg.eval_envs)
         carry = (env.reset(g, n, mode),
                  batched_history(self.model.cfg, n, env.device),
                  self.planner.init_plan(n, env.device))
-        step, _ = self._stepper("eval", mode, dyn_state, carry, g)
+        step, _ = self._stepper("eval", mode, dyn_state, carry, g, noise)
         ret = torch.zeros(n, device=env.device)
         alive = torch.ones(n, device=env.device)
         for t in range(env.horizon):

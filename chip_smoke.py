@@ -1744,10 +1744,11 @@ def run_mesh():
 # MBBL fixed-horizon protocol (no early termination); pets_cadm is the
 # paper's PE-TS + CaDM (5 probabilistic members, TS1 planning); grbal plans
 # through per-env adapted weights and reports no forward MSE (its column
-# NaN at every iteration, as in its record)
+# NaN at every iteration, as in its record); vanilla has no context (its
+# heads read (obs, action) alone)
 MATRIX_CELLS = (("half_cheetah", "cadm"), ("half_cheetah", "pets_cadm"),
                 ("hopper", "cadm"), ("slim_humanoid", "cadm"),
-                ("half_cheetah", "grbal"))
+                ("half_cheetah", "grbal"), ("half_cheetah", "vanilla"))
 NAN_COLUMNS = {"grbal": {"fit/valid_fwd_mse_after"}}
 MATRIX_REFERENCES = {
     (f, m): os.path.join(ROOT, "results", "raw", f"{f}__{m}__s1.json")

@@ -166,7 +166,8 @@ class Lockstep:
                     ("mu", np.abs(mut.numpy() - np.asarray(muj))),
                     ("obs", do),
                     ("reward", np.abs(trew.numpy() - np.asarray(jrew)))):
-                worst[name] = max(worst[name], float(diff.max()))
+                # initial: Vanilla's z has no columns
+                worst[name] = max(worst[name], float(diff.max(initial=0.0)))
             for e in np.flatnonzero(da > FLAG):
                 flips += 1
                 print(f"  step {t} env {e}: action {da[e]:.4g} apart",

@@ -1,6 +1,7 @@
 """Evaluate one trained model in both packages at pinned hidden scales.
 
-The model (a ``half_cheetah cadm`` snapshot of the port) is kept as an npz
+The model (a ``half_cheetah`` MB snapshot of the port: CaDM, or Vanilla
+with no context, ``--cell half_cheetah__vanilla__s1``) is kept as an npz
 of float32 arrays: ``params/<path>`` for each leaf of the params tree (list
 indices as path parts) and ``norm/<field>`` for the six normalization
 statistics, the layout both packages share. Each side rolls the env's full
@@ -62,7 +63,8 @@ keys split per env, so a larger ``--n-envs`` repeats the first episodes).
 
 The port and export sides import nothing of JAX; the JAX side imports
 nothing of the port; the verdict neither. Each side writes
-``results/torch/cross_eval/<side>.json``; the RNG streams of the two
+``results/torch/cross_eval/<side>.json`` for the first cell, ``CELL``, and
+``<cell>.<side>.json`` for any other; the RNG streams of the two
 packages differ, so the sides agree as distributions, not env by env.
 """
 from __future__ import annotations
@@ -467,10 +469,10 @@ def print_verdict(v: dict) -> None:
 
 
 def side_name(args, side: str) -> str:
-    """The file stem of ``side``'s record: the side alone for the CEM cell
-    (its earlier records keep their names), ``<tag>.<side>`` for a PPO
-    policy."""
-    return f"{tag(args)}.{side}" if is_ppo(args.cell) else side
+    """The file stem of ``side``'s record: the side alone for the first
+    cell, ``CELL`` (its records keep their names), ``<tag>.<side>`` for any
+    other cell or PPO policy."""
+    return side if args.cell == CELL else f"{tag(args)}.{side}"
 
 
 def side_path(name: str) -> str:

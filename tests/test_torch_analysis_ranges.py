@@ -129,6 +129,43 @@ def test_cross_eval_npz_layout_and_the_two_se_rule():
     assert pool["n"] == 8 and pool["return_mean"] == pytest.approx(3.5)
 
 
+def test_cross_eval_vanilla_cell_has_no_context(tmp_path, monkeypatch):
+    """A Vanilla cell (``context='none'``): ``--side export`` of the matrix
+    runner's snapshot gives back its params (no encoder) and norm bit for
+    bit, and ``--side port`` on the CPU plans a pinned scale through them
+    at the cell's width. Its files carry the cell's name; the first cell's
+    (``port.json``) are not touched."""
+    import scripts.cross_eval_ranges as cross
+    from cadm_tpu_torch.analysis.snapshot import cell_config
+    from cadm_tpu_torch.cli import matrix
+    from cadm_tpu_torch.core.types import tree_leaves
+
+    cell = "half_cheetah__vanilla__s1"
+    monkeypatch.setattr(cross, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(matrix, "CKPT_DIR", str(tmp_path / "ckpt"))
+    _, model, _, _ = cell_config(cell).build("cpu")
+    assert model.cfg.context == "none"
+    dyn = model.init_state(torch.Generator().manual_seed(1))
+    matrix.save_snapshot(cell, dyn)
+    cross.main(["--side", "export", "--cell", cell, "--ckpt",
+                str(tmp_path / "ckpt" / f"{cell}.pt")])
+    params, norm, policy, _ = cross.read_npz(cell)
+    assert policy is None and "encoder" not in params
+    for ours, ref in ((params, dyn.params), (norm, dyn.norm.__dict__)):
+        a, b = jax.tree.leaves(ours), tree_leaves(ref)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y.numpy())
+    cross.main(["--side", "port", "--cell", cell, "--device", "cpu",
+                "--n-envs", "2", "--horizon", "2", "--scales", "0.5"])
+    with open(tmp_path / f"{cell}.port.json") as f:
+        side = json.load(f)
+    assert side["cell"] == cell and side["horizon"] == 2
+    rec = side["runs"]["2 cpu"]["0.5"]
+    assert rec["n"] == 2 and np.isfinite(rec["returns"]).all()
+    assert not (tmp_path / "port.json").exists()
+
+
 # ------------------------------------------- the PPO cross-evaluation --
 PPO_CELL = "half_cheetah__ppo_cadm__s4"
 

@@ -1,8 +1,8 @@
-"""The planned collect of the history baselines against the JAX trainer's:
-Stacked (the flat K-window fed to the heads), ReBAL (a GRU state carried
-through ``push_history``) and GrBAL (per-env weights adapted on the window
-at every control step, planned through by each package's
-``GrBALPlanner``).
+"""The planned collect of the baselines against the JAX trainer's: Vanilla
+(no context: a zero-width z, the window still pushed and wiped), Stacked
+(the flat K-window fed to the heads), ReBAL (a GRU state carried through
+``push_history``) and GrBAL (per-env weights adapted on the window at every
+control step, planned through by each package's ``GrBALPlanner``).
 
 The set-up is tests/torch_collect_common.py's: 4 deterministic cheetahs,
 6 steps into a ring of 5 columns that wraps, 3-step episodes starting at
@@ -39,6 +39,7 @@ from tests.torch_collect_common import (
 BASE = dict(obs_dim=17, act_dim=6, hidden=(16, 16), history_k=3)
 # (model config, GrBAL?)
 MODELS = {
+    "vanilla": (dict(BASE, context="none"), False),
     "stacked": (dict(BASE, context="stacked"), False),
     "rnn": (dict(BASE, context="rnn", z_dim=4, rnn_hidden=8), False),
     "grbal": (BASE, True),

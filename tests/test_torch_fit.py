@@ -315,16 +315,18 @@ def jax_fit_draws(jtr, jbuf, rng, n_mb, mb_cap):
 # pets_cadm_dv): five probabilistic members under the decoupled loss, each
 # drawing its own bootstrap minibatch
 PETS = dict(MODEL, n_members=5, probabilistic=True, mean_anchor=1.0)
-# the history baselines (cli/matrix.py's stacked, rebal and grbal): the flat
-# window fed to the heads, the GRU encoder over the window, and GrBAL's
-# meta-loss through one inner step on the window (its net of the same
-# width); ``grbal`` marks a GrBAL config
+# the baselines (cli/matrix.py's vanilla, stacked, rebal and grbal): no
+# context (the heads read obs and action alone), the flat window fed to the
+# heads, the GRU encoder over the window, and GrBAL's meta-loss through one
+# inner step on the window (its net of the same width); ``grbal`` marks a
+# GrBAL config
 EPOCH_FITS = {
     "deterministic": (MODEL, {}),
     "pets_cadm": (PETS, {}),
     "pets_cadm_detached": (dict(PETS, detach_logvar_trunk=True), {}),
     "pets_cadm_dv": (dict(PETS, detach_logvar_trunk=True),
                      dict(early_stop_metric="fwd_mse")),
+    "vanilla": (dict(MODEL, context="none"), {}),
     "stacked": (dict(MODEL, context="stacked"), {}),
     "rnn": (dict(MODEL, context="rnn", z_dim=4, rnn_hidden=8), {}),
     "grbal": (dict(obs_dim=OBS, act_dim=ACT, hidden=(32, 32), history_k=K,

@@ -319,6 +319,40 @@ def test_compare_marks_a_row_outside_the_references_spread(tmp_path, ours,
     assert len(rows) == 3
 
 
+def test_the_last_k_evals_are_an_added_view(tmp_path, capsys):
+    """``--last-k``: each run's evals per mode as the mean of its last k
+    (NaN evals skipped) beside its last two, and each reference seed's last
+    k; the comparison above it keeps the last two."""
+    def cell(d, seed, train):
+        d.mkdir(exist_ok=True)
+        history = [{"itr": i, "eval/return_mode0": v, "eval/return_mode1":
+                    v / 2, "eval/return_mode2": float("nan")}
+                   for i, v in enumerate(train)]
+        history.insert(2, {"itr": 9})    # an iteration without evals
+        (d / f"half_cheetah__vanilla__s{seed}.json").write_text(json.dumps({
+            "family": "half_cheetah", "model": "vanilla", "seed": seed,
+            "wall_clock_s": 60.0, "history": history}))
+
+    cell(tmp_path / "ours", 0, [100.0, 900.0, 500.0, 100.0, 300.0])
+    cell(tmp_path / "ref", 0, [0.0, 1000.0, 3000.0, 4000.0, 6000.0])
+    cell(tmp_path / "ref", 1, [2000.0, 2000.0, 2000.0, 2000.0, 2000.0])
+    rows = results.last_k_table(str(tmp_path / "ours"),
+                                str(tmp_path / "ref"), k=3)
+    assert rows[0] == ("| cell | last 2 evals | last 3 evals | reference "
+                       "seeds, last 3 |")
+    assert rows[2] == ("| half_cheetah__vanilla__s0 | 200.0 / 100.0 / — | "
+                       "300.0 / 150.0 / — | s0 4333.3 / 2166.7 / —; "
+                       "s1 2000.0 / 1000.0 / — |")
+    assert len(rows) == 3
+    results.main(["--raw", str(tmp_path / "ours"), "--out",
+                  str(tmp_path / "out.md"), "--against",
+                  str(tmp_path / "ref"), "--last-k", "3"])
+    out = capsys.readouterr().out.split("\n")
+    assert out.index(rows[2]) > out.index(
+        "| half_cheetah | Vanilla | 200.0 / 3500.0 ± 1500.0 out ×2 | "
+        "100.0 / 1750.0 ± 750.0 out ×2 | — | — | 1 / 2 |")
+
+
 # ---------------------------------------------------- (iv b) the fit trace --
 JAX_RAW = os.path.join(ROOT, "results", "raw")
 

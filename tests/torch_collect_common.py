@@ -155,17 +155,21 @@ def jax_noise(key):
     return torch.tensor(np.swapaxes(np.asarray(eps), 0, 1))
 
 
-def setup(model=MODEL, grbal=False, physics=None):
+def setup(model=MODEL, grbal=False, physics=None,
+          envs=(DetJaxCheetah, DetCheetah)):
     """(JAX trainer, JAX collect args, port trainer, port collect args) of
     the model config ``model``: a ``Dynamics`` one, or with ``grbal`` a
-    ``GrBAL`` one, planned by each package's ``GrBALPlanner``.
-    ``physics``: a ``SharedPhysics`` both envs step through, else each
-    package steps its own."""
-    tcfg = dict(n_envs=E, steps_per_itr=STEPS, buffer_capacity=CAPACITY)
+    ``GrBAL`` one, planned by each package's ``GrBALPlanner``; ``E``
+    collect and eval envs each. ``physics``: a ``SharedPhysics`` both envs
+    step through, else each package steps its own. ``envs``: the (JAX,
+    port) env classes."""
+    jax_env, port_env = envs
+    tcfg = dict(n_envs=E, eval_envs=E, steps_per_itr=STEPS,
+                buffer_capacity=CAPACITY)
     if physics is None:
-        jenv = DetJaxCheetah()
+        jenv = jax_env()
     else:
-        class SharedJaxCheetah(DetJaxCheetah):
+        class SharedJaxCheetah(jax_env):
             def step_phys(self, params, phys, action):
                 return physics.jax_step_phys(params, phys, action)
 
@@ -176,7 +180,7 @@ def setup(model=MODEL, grbal=False, physics=None):
         JaxPlannerConfig(**PLAN), jm, jenv.reward, 6,
         bad_transition_fn=jenv.bad_transition, obs_limit=jenv.bad_obs_limit)
     jtr = JaxTrainer(jenv, jm, jplanner, JaxTrainerConfig(**tcfg))
-    env = DetCheetah(device="cpu")
+    env = port_env(device="cpu")
     if physics is not None:
         env.step_phys = physics.port_step_phys
     model = (GrBAL(GrBALConfig(**model), "cpu") if grbal
